@@ -11,7 +11,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      (4,096 scenarios x 240 steps x 7 tiers), with crossing edge cases;
   2. holds the ELL propagation kernel against its plain version on the
      card, on the paper-scale call graph (21,979 services) and the main
-     path's dark sets plus the all-preemptible worst case;
+     path's dark sets plus the all-preemptible worst case, and on the
+     same fleet with multi-hop fail-close relay chains
+     (``unsafe_chain_fraction=0.3``), where the fixed point takes more
+     than 2 rounds and the round count tests the kernel's double
+     buffering;
   3. runs the main path, ``SweepEngine(device="cuda").run``, on the
      paper-scale fleet over 65,536 scenarios (16 chunks of 4,096) with
      the dependency and cascade-storm stages, checks that both kernels
@@ -24,12 +28,12 @@ integral and mean, float32 sums in another order, rtol 3e-6 (kernel) and
 1e-5 (engine).  Any failure exits non-zero.  The last two lines of
 standard output are a JSON object of the kernels' numbers and the JSON
 result line; without a CUDA device the script exits 2 and prints no
-result.  ``--scale`` / ``--scenarios`` shrink the run for a quick check.
+result.  It takes no arguments: the fleet, the grid and the number of
+warm runs are fixed, so every passing run is the full-size one.
 """
 
 from __future__ import annotations
 
-import argparse
 import itertools
 import json
 import os
@@ -49,6 +53,10 @@ THRESH = 0.999
 F32_TIGHT = 1e-6
 AVAIL_INT_RTOL = 3e-6
 AVAIL_MEAN_RTOL = 1e-5
+
+SCENARIOS = 65_536          # 16 chunks of 4,096
+WARM_RUNS = 3
+RELAY_CHAIN_FRACTION = 0.3  # multi-hop case of phase 2
 
 
 class SmokeFailure(Exception):
@@ -188,27 +196,37 @@ def phase_reduce(torch, device, S=4096, T=240, R=7) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_propagation(torch, device, graph, dark: np.ndarray) -> dict:
-    from repro_torch.graph.propagation import edge_consts
+def hold_propagation(torch, device, consts, dark: np.ndarray, where: str):
+    """Kernel vs plain version on one dark batch: ``broken`` and
+    ``rounds`` exact.  Returns the dark tensor, the rounds and the host
+    ``broken`` matrix."""
     from repro_torch.kernels.ufa import propagation as prop
-    consts = edge_consts(graph, device)
     dark_d = torch.from_numpy(dark).to(device)
     got, rounds = prop.fixed_point_ell(dark_d, consts["ell_dst"],
                                        consts["ell_closed"])
     want, ref_rounds = prop.ref_fixed_point(dark_d, consts["ell_dst"],
                                             consts["ell_closed"])
     got, want = got.cpu().numpy(), want.cpu().numpy()
-    check(rounds == ref_rounds, f"propagation: rounds {rounds} != "
-          f"{ref_rounds}")
+    check(rounds == ref_rounds, f"{where}: rounds {rounds} != {ref_rounds}")
     bad = int(np.count_nonzero(got != want))
-    check(bad == 0, f"propagation: broken differs in {bad} entries")
+    check(bad == 0, f"{where}: broken differs in {bad} entries")
     check((got >= dark).all() and got.sum() > dark.sum(),
-          "propagation: the fixed point must contain the dark sets and "
+          f"{where}: the fixed point must contain the dark sets and "
           "break more")
+    log(f"{where}: U={dark.shape[0]} n={dark.shape[1]} "
+        f"K={consts['ell_dst'].shape[1]} rounds={rounds} "
+        f"broken={int(got.sum())} dark={int(dark.sum())}")
+    return dark_d, rounds, got
+
+
+def phase_propagation(torch, device, graph, dark: np.ndarray) -> dict:
+    from repro_torch.graph.propagation import edge_consts
+    from repro_torch.kernels.ufa import propagation as prop
+    consts = edge_consts(graph, device)
+    dark_d, rounds, _ = hold_propagation(torch, device, consts, dark,
+                                         "propagation")
     U, n = dark.shape
     K = consts["ell_dst"].shape[1]
-    log(f"propagation: U={U} n={n} K={K} rounds={rounds} "
-        f"broken={int(got.sum())} dark={int(dark.sum())}")
     entry = {"name": "fixed_point_ell", "route": "cuda",
              "source": "src/repro_torch/csrc/fixed_point_ell.cu",
              "replaces": "src/repro/kernels/ufa/propagation.py:115",
@@ -246,6 +264,34 @@ def phase_propagation(torch, device, graph, dark: np.ndarray) -> dict:
     return entry
 
 
+def phase_multihop(torch, device, fractions, seed: int) -> None:
+    """The paper-scale fleet with fail-close relay chains between
+    critical services: breakage climbs several hops, one hop per Jacobi
+    round, so an in-place (Gauss-Seidel) kernel would stop in fewer
+    rounds than the plain version.  ``broken`` and ``rounds`` exact."""
+    from repro_torch.core.service import synthesize_fleet
+    from repro_torch.graph import CallGraph
+    from repro_torch.graph.propagation import (edge_consts,
+                                               shared_blackhole_draws)
+    from repro_torch.kernels.ufa import propagation as prop
+    fs = synthesize_fleet(scale=1.0, seed=7, as_arrays=True,
+                          unsafe_chain_fraction=RELAY_CHAIN_FRACTION)
+    fs.apply_ufa_target_classes()
+    graph = CallGraph.from_fleet_state(fs)
+    consts = edge_consts(graph, device)
+    dark, _ = shared_blackhole_draws(graph, fractions, seed=seed)
+    dark_d, rounds, _ = hold_propagation(torch, device, consts, dark,
+                                         "propagation, relay chains")
+    check(rounds > 2, f"propagation, relay chains: {rounds} rounds; the "
+          "case needs multi-hop chains (more than 2 rounds)")
+    if device.type == "cuda":
+        args = (dark_d, consts["ell_dst"], consts["ell_closed"])
+        ms = device_ms(torch, lambda: prop.fixed_point_ell(*args), reps=10)
+        log(f"propagation, relay chains: whole fixed point {ms:.6f} ms over "
+            f"{rounds} rounds = {ms / rounds:.6f} ms per round with the "
+            f"host's flag read and synchronise")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -276,14 +322,7 @@ def check_outputs(res: dict, n: int, grid: dict):
     check((res["storm_broken_frac"] > 0).any(), "main: no storm stage")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scale", type=float, default=1.0,
-                    help="fleet scale (1.0 = the paper's 21,979 services)")
-    ap.add_argument("--scenarios", type=int, default=65_536)
-    ap.add_argument("--warm-runs", type=int, default=3)
-    args = ap.parse_args(argv)
-
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -326,12 +365,12 @@ def main(argv=None) -> int:
 
     # the paper-scale fleet, graph and main-path grid
     t0 = time.perf_counter()
-    fs = synthesize_fleet(scale=args.scale, seed=7, as_arrays=True)
+    fs = synthesize_fleet(scale=1.0, seed=7, as_arrays=True)
     fs.apply_ufa_target_classes()
     graph = CallGraph.from_fleet_state(fs)
     agg = FleetAggregates.from_fleet_state(fs)
     cfg = config_for_fleet(fs)
-    grid = main_grid(args.scenarios)
+    grid = main_grid(SCENARIOS)
     log(f"fleet: {fs.n} services, {graph.n_edges} edges, "
         f"{int(graph.critical.sum())} critical, max out-degree "
         f"{int(np.diff(graph.indptr).max())}; set-up "
@@ -345,12 +384,14 @@ def main(argv=None) -> int:
         storm_seed=eng.storm_seed)
     dark = np.concatenate([dark_u, graph.preemptible[None, :]])
     k_prop = phase_propagation(torch, device, graph, dark)
-    log(f"phase 2 ok: fixed_point_ell kernel == plain, "
+    phase_multihop(torch, device, np.arange(1, 9) / 8.0, seed=3)
+    log(f"phase 2 ok: fixed_point_ell kernel == plain (one-hop and relay "
+        f"chains), "
         f"{k_prop['ms']:.6f} ms, plain {k_prop['plain_ms']:.6f} ms, "
         f"bound {k_prop['bound_ms']:.6f} ms [{card}]")
 
     # phase 3: the main path, counts zeroed just before, read just after
-    n = args.scenarios
+    n = SCENARIOS
     timeline_reduce.launches = 0
     fixed_point_ell.launches = 0
     torch.cuda.synchronize()
@@ -365,7 +406,7 @@ def main(argv=None) -> int:
         f"fixed_point_ell {k_prop['launches']} (one per round)")
     check_outputs(res, n, grid)
     warm = []
-    for _ in range(args.warm_runs):
+    for _ in range(WARM_RUNS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         again = eng.run(grid)

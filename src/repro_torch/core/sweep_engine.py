@@ -24,7 +24,9 @@ fuses a multiply-add).  The card's run and the port's CPU run differ
 only in ``t_availability_mean``.
 
 Not ported yet: ``soft_tau`` (ROADMAP Queue A item 5), multi-device
-sharding, and ``compiled_variants`` (there is no jit cache).
+sharding, and ``compiled_variants``: the port compiles no program per
+shape, so it sets neither ``ufa_sweep_compiled_variants`` nor
+``ufa_sweep_compile_misses_total``.
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ from repro_torch.core.timeline_sim import (PARAM_KEYS, TimelineConfig,
                                            default_scenario, default_ts,
                                            timeline_verdicts_batch,
                                            validate_grid)
-from repro_torch.kernels import build
 from repro_torch.kernels.backend import resolve_device
 
 # mega-batch width: the (width, T, R) working set of one chunk stays well
@@ -191,7 +192,6 @@ class SweepEngine:
         meter = obs.enabled()
         if meter:
             t0 = time.perf_counter()
-            variants0 = build.loaded_count()
         params = self._params(grid, n, shape)
         use_dep = self.graph is not None and dep_broken_frac is None
 
@@ -237,7 +237,6 @@ class SweepEngine:
         result.update({k: np.asarray(v) for k, v in grid.items()})
         if meter:
             dt = time.perf_counter() - t0
-            variants = build.loaded_count()
             obs.inc("ufa_sweep_runs_total")
             obs.inc("ufa_sweep_scenarios_total", n)
             if dt > 0:
@@ -246,12 +245,6 @@ class SweepEngine:
             padded = shape[0] * shape[1]
             obs.set_gauge("ufa_sweep_padding_waste_ratio",
                           (padded - n) / padded)
-            # the port compiles no programs per shape: its "variants" are
-            # the kernel libraries loaded, and a miss is a first-use build
-            obs.set_gauge("ufa_sweep_compiled_variants", variants)
-            if variants > variants0:
-                obs.inc("ufa_sweep_compile_misses_total",
-                        variants - variants0)
         return result
 
 

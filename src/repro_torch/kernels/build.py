@@ -87,8 +87,3 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
-
-
-def loaded_count() -> int:
-    """Kernel libraries resident in this process."""
-    return len(_loaded)
