@@ -35,12 +35,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      histogram and propagation kernels were launched in that run, holds
      the counts, detections, certification, plan and gate exactly
      against the port's CPU run on the same device-sampled chunks, and
-     times the stages.
+     times the stages;
+  6. drives the model-kernel entry point, ``repro_torch.kernels.ops``,
+     at the full widths of llama3.2-3b, gemma3-4b, qwen3-1.7b and
+     phi3.5-moe: rmsnorm (hidden norm and qk-norm), flash attention
+     (causal prefill, sliding window), decode attention (GQA decode,
+     local and global layers, length 1 and 0 from device tensors) and
+     the grouped expert matmul (up and down projections), bf16 and fp32
+     (fp32 also at gemma3-4b's window 1024, where the window bites),
+     plus ragged edge cases; checks that each of the four kernels was
+     launched once per shape, holds every output against its plain
+     version on the same inputs, and times the kernel (CUDA events and
+     profiler device time), the plain version and the PyTorch library
+     call that computes the same function.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
 integral and mean, float32 sums in another order, rtol 3e-6 (kernel) and
-1e-5 (engine).  Any failure exits non-zero.  The last two lines of
+1e-5 (engine); the model kernels in float32 at the reference's own
+tolerances (tests/test_kernels.py, rtol = atol: flash 2e-5, decode 3e-5,
+grouped matmul 2e-3, rmsnorm 1e-5); in bfloat16 within one rounding
+step of each value (2^-7 of it) plus 2^-14 of the largest |plain|, and
+at most 5% of the outputs differing at all; every case whose window
+bites also shows that the plain version at window -1 and +1 falls
+outside its limit; decode at length 0 exactly zero.  Any failure exits
+non-zero.  The last two lines of
 standard output are a JSON object of the kernels' numbers and the JSON
 result line; without a CUDA device the script exits 2 and prints no
 result.  It takes no arguments: the fleets, the grid, the chunk and the
@@ -64,9 +83,12 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor) peak
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) and
+# dense bf16 tensor-core peaks
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+L2_BYTES = 50e6
 
 THRESH = 0.999
 F32_TIGHT = 1e-6
@@ -79,6 +101,31 @@ WARM_RUNS = 3
 RELAY_CHAIN_FRACTION = 0.3  # multi-hop case of phase 2
 HIST_CHUNK = 4_000_000      # one chunk of the detector's stream (phase 4)
 DETECT_SEED = 7             # the fleet and stream seed of phases 4 and 5
+MODEL_SEED = 15             # the random inputs of phase 6
+# phase 6 float32 tolerances (rtol = atol): the reference's own,
+# tests/test_kernels.py
+MODEL_F32_TOL = {"flash_attention": 2e-5, "decode_attention": 3e-5,
+                 "grouped_matmul": 2e-3, "rmsnorm": 1e-5}
+# bfloat16: kernel and plain version both compute in float32 and round
+# once to bfloat16 (8 significant bits), so an output may differ by one
+# rounding step, at most 2^-7 of its value; 2^-14 of the largest |plain|
+# covers the float32 summation-order difference near zero.  The
+# reference's flat 2e-2 is as large as a typical decode output at full
+# width.  A store that truncates instead of rounding to nearest even
+# moves about half the outputs by a step, so at most 5% may differ at all.
+BF16_STEP = 2.0 ** -7
+BF16_FLOOR = 2.0 ** -14
+BF16_MAX_DIFFER = 0.05
+# phase 6's kernels: wrapper name, csrc source, the Pallas call it replaces
+MODEL_KERNELS = (
+    ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:36"),
+    ("decode_attention", "decode_attention",
+     "src/repro/kernels/decode_attention.py:103"),
+    ("flash_attention", "flash_attention",
+     "src/repro/kernels/flash_attention.py:102"),
+    ("grouped_matmul", "grouped_matmul",
+     "src/repro/kernels/grouped_matmul.py:49"),
+)
 
 
 class SmokeFailure(Exception):
@@ -625,6 +672,296 @@ def profile_run(what: str, torch, fn, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the model kernels behind repro_torch.kernels.ops
+# ---------------------------------------------------------------------------
+
+
+def profiled_device_ms(torch, fn, reps: int):
+    """Milliseconds of device time a call of ``fn`` takes, from the
+    profiler: the kernels' own time, without the host's gaps between
+    calls (which CUDA events around back-to-back calls include).  None
+    when the trace holds no device time (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA"))
+    return us / reps / 1e3 if us > 0 else None
+
+
+def model_limit(torch, op: str, dtype, want):
+    """Per-entry limit on ``|kernel - plain|`` and its description: the
+    reference's rtol = atol for float32; for bfloat16 one rounding step of
+    each value plus ``BF16_FLOOR`` of the largest |plain|."""
+    if dtype == torch.float32:
+        tol = MODEL_F32_TOL[op]
+        return tol + tol * want.abs(), f"rtol=atol={tol}"
+    floor = BF16_FLOOR * float(want.abs().max())
+    return (BF16_STEP * want.abs() + floor,
+            f"2^-7*|plain| + {floor:.3g} (2^-14 * max|plain|)")
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.6f} ms"
+
+
+def attention_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the flash mask allows: the work this input
+    needs, counted per (sequence, head)."""
+    q = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros_like(q)
+    hi = q + 1 if causal else np.full_like(q, S)
+    return int((hi - lo).sum())
+
+
+def model_cases(torch, device):
+    """Phase 6's shapes at the full widths of llama3.2-3b, gemma3-4b,
+    qwen3-1.7b and phi3.5-moe.  Each case: the op, a label, the inputs
+    (random, from a seed, made on the card), the plain version and the
+    library call on the same inputs, bytes and operations for the bound,
+    the tolerance (the reference's, tests/test_kernels.py) and the number
+    of timed calls."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device)
+    gen.manual_seed(MODEL_SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=f32).to(dtype)
+
+    cases = []
+
+    def add(op, label, args, kwargs, plain, library, bytes_moved, flops,
+            dtype, reps, check=None, shift=None):
+        cases.append(dict(op=op, label=label, args=args, kwargs=kwargs,
+                          plain=plain, library=library,
+                          bytes=bytes_moved, flops=flops, dtype=dtype,
+                          reps=reps, check=check, shift=shift))
+
+    # B4: llama3.2-3b hidden norm (B 4 x S 4,096 tokens), qwen3 qk-norm
+    for label, (R, D), dt in (("llama3.2-3b hidden norm", (16384, 3072), bf16),
+                              ("llama3.2-3b hidden norm", (16384, 3072), f32),
+                              ("qwen3-1.7b qk-norm", (262144, 128), bf16),
+                              ("edge: odd rows and width", (1001, 1001), bf16)):
+        x, s = randn(R, D, dtype=dt), randn(D, dtype=dt)
+        size = x.element_size()
+        add("rmsnorm", label, (x, s), {}, ref.ref_rmsnorm,
+            lambda x, s: F.rms_norm(x, (x.shape[-1],), s, 1e-6),
+            2 * R * D * size + D * size, 4 * R * D, dt, 50)
+
+    # B6: llama3.2-3b prefill (KV 8 repeated to 24 heads), gemma3-4b local
+    for label, (B, S, H, d), causal, window, dt, reps in (
+            ("llama3.2-3b prefill", (2, 4096, 24, 128), True, 0, bf16, 5),
+            ("gemma3-4b local layer", (2, 4096, 8, 256), True, 1024, bf16, 5),
+            ("llama3.2-3b prefill fp32", (1, 1024, 24, 128), True, 0, f32, 5),
+            ("gemma3-4b local layer fp32", (1, 2048, 8, 256), True, 1024,
+             f32, 5),
+            ("edge: ragged S, window", (1, 1000, 4, 128), True, 100, bf16, 5),
+            ("edge: ragged S, not causal", (1, 520, 2, 64), False, 0, f32, 5)):
+        q, k, v = (randn(B, S, H, d, dtype=dt) for _ in range(3))
+        pos = torch.arange(S, device=device)
+        allowed = pos[None, :] <= pos[:, None] if causal else \
+            torch.ones((S, S), dtype=torch.bool, device=device)
+        if window > 0:
+            allowed &= (pos[:, None] - pos[None, :]) < window
+
+        def sdpa(q, k, v, causal=causal, window=window, allowed=allowed):
+            args = [t.transpose(1, 2) for t in (q, k, v)]
+            if window > 0:
+                out = F.scaled_dot_product_attention(*args, attn_mask=allowed)
+            else:
+                out = F.scaled_dot_product_attention(*args, is_causal=causal)
+            return out.transpose(1, 2)
+
+        add("flash_attention", label, (q, k, v),
+            {"causal": causal, "window": window},
+            ref.ref_flash_attention, sdpa,
+            4 * B * S * H * d * q.element_size(),
+            4 * B * H * d * attention_pairs(S, causal, window), dt, reps,
+            shift=(lambda e, a=(q, k, v), causal=causal, window=window:
+                   (a, {"causal": causal, "window": window + e}))
+            if 0 < window < S else None)
+
+    # B5: llama3.2-3b decode, gemma3-4b local and global decode, edges
+    def valid_count(K, length, window):
+        lo = max(0, length - window) if window > 0 else 0
+        return max(0, min(length, K) - lo)
+
+    for label, (B, H, KV, d, K), length, window, dt in (
+            ("llama3.2-3b decode", (8, 24, 8, 128, 8192), 6000, 0, bf16),
+            ("gemma3-4b local decode", (8, 8, 4, 256, 8192), 8192, 1024, bf16),
+            ("gemma3-4b global decode", (8, 8, 4, 256, 8192), 8192, 0, bf16),
+            ("llama3.2-3b decode, length 1 (device int32)",
+             (8, 24, 8, 128, 8192), 1, 0, bf16),
+            ("llama3.2-3b decode, length 0 (device int32)",
+             (8, 24, 8, 128, 8192), 0, 0, bf16),
+            ("llama3.2-3b decode fp32", (8, 24, 8, 128, 8192), 6000, 0, f32),
+            ("gemma3-4b local decode fp32", (8, 8, 4, 256, 8192), 8192, 1024,
+             f32),
+            ("edge: ragged cache, window past the start",
+             (2, 8, 2, 64, 1000), 777, 900, f32)):
+        q = randn(B, H, d, dtype=dt)
+        kc, vc = randn(B, K, KV, d, dtype=dt), randn(B, K, KV, d, dtype=dt)
+        n_valid = valid_count(K, length, window)
+        arg = (torch.tensor(length, dtype=torch.int32, device=device)
+               if "device int32" in label else length)
+        pos = torch.arange(K, device=device)
+        mask = ((pos < length) & ((length - 1 - pos) < window
+                                  if window > 0 else True))[None, None, None]
+
+        def sdpa_decode(q, kc, vc, length, window, mask=mask):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+        size = q.element_size()
+        add("decode_attention", label, (q, kc, vc, arg, window), {},
+            ref.ref_decode_attention, sdpa_decode if n_valid else None,
+            2 * n_valid * B * KV * d * size + 2 * B * H * d * size,
+            4 * B * H * d * n_valid, dt, 50,
+            check=(lambda out: not bool(out.any())) if length == 0 else None,
+            shift=(lambda e, a=(q, kc, vc, arg), window=window:
+                   ((*a, window + e), {}))
+            if 0 < window < length else None)
+
+    # B7: phi3.5-moe experts, 16 x 640 rows (4,096 tokens x top-2 x
+    # capacity 1.25 / 16), d_model 4,096, d_ff 6,400
+    for label, (E, C, D, Fo), dt, reps in (
+            ("phi3.5-moe expert up", (16, 640, 4096, 6400), bf16, 5),
+            ("phi3.5-moe expert down", (16, 640, 6400, 4096), bf16, 5),
+            ("phi3.5-moe expert up fp32", (16, 640, 4096, 6400), f32, 2),
+            ("edge: ragged C, D, F", (3, 50, 100, 70), bf16, 20),
+            ("edge: ragged C, D, F fp32", (3, 50, 100, 70), f32, 20)):
+        x, w = randn(E, C, D, dtype=dt), randn(E, D, Fo, dtype=dt)
+        add("grouped_matmul", label, (x, w), {}, ref.ref_grouped_matmul,
+            torch.bmm, (E * C * D + E * D * Fo + E * C * Fo)
+            * x.element_size(), 2 * E * C * D * Fo, dt, reps)
+    return ops, cases
+
+
+def phase_model_kernels(torch, device, card: str) -> list:
+    """Phase 6: every shape through ``repro_torch.kernels.ops`` with the
+    counts zeroed just before and read just after; then each output held
+    against the plain version on the same inputs, and the kernel, the
+    plain version and the library call timed."""
+    ops, cases = model_cases(torch, device)
+    names = ("rmsnorm", "decode_attention", "flash_attention",
+             "grouped_matmul")
+    for name in names:
+        getattr(ops, name).launches = 0
+    torch.cuda.synchronize()
+    outs = [getattr(ops, c["op"])(*c["args"], **c["kwargs"]) for c in cases]
+    torch.cuda.synchronize()
+    launches = {name: getattr(ops, name).launches for name in names}
+    for name in names:
+        n = sum(c["op"] == name for c in cases)
+        check(launches[name] == n, f"phase 6: {name} launched "
+              f"{launches[name]} times for {n} shapes")
+
+    per_case = []
+    for c, out in zip(cases, outs):
+        where = f"{c['op']}, {c['label']}"
+        want = c["plain"](*c["args"], **c["kwargs"])
+        check(out.dtype == want.dtype and out.shape == want.shape,
+              f"{where}: {out.dtype}{tuple(out.shape)}, want "
+              f"{want.dtype}{tuple(want.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{where}: non-finite output")
+        g, w = out.float(), want.float()
+        diff = (g - w).abs()
+        err = float(diff.max())
+        lim, tol = model_limit(torch, c["op"], c["dtype"], w)
+        over = int((diff > lim).sum())
+        check(over == 0, f"{where}: {over} entries beyond {tol} "
+              f"(max abs err {err:.3g})")
+        used = float(torch.where(lim > 0, diff / lim, diff).max())
+        differ = float((out != want).float().mean())
+        if c["dtype"] == torch.bfloat16:
+            check(differ <= BF16_MAX_DIFFER, f"{where}: {differ:.4f} of the "
+                  f"outputs differ from the plain version's, more than "
+                  f"{BF16_MAX_DIFFER} (a store that does not round to "
+                  f"nearest even?)")
+        if c["check"] is not None:
+            check(c["check"](out), f"{where}: edge case check failed")
+        # where the window bites, the limit must see it off by one: the
+        # plain version at window -1 and +1, held to the same limit, fails
+        off_by_one = None
+        if c["shift"] is not None:
+            off_by_one = []
+            for e in (-1, 1):
+                a, kw = c["shift"](e)
+                alt = c["plain"](*a, **kw).float()
+                off_by_one.append(int(((alt - w).abs() > lim).sum()))
+                del alt
+            check(min(off_by_one) > 0, f"{where}: the limit cannot tell "
+                  f"the window from window -1 / +1 ({off_by_one})")
+        del diff, lim
+        rate = BF16_OPS_PER_S if c["dtype"] == torch.bfloat16 \
+            else F32_OPS_PER_S
+        if c["op"] == "rmsnorm":
+            rate = F32_OPS_PER_S      # elementwise float32 math either way
+        t_bytes, t_ops = c["bytes"] / MEM_BYTES_PER_S, c["flops"] / rate
+        row = {"label": c["label"], "max_abs_err": err, "tol": tol,
+               "limit_used": used, "differ_share": differ,
+               "window_off_by_one_over": off_by_one,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        fn = getattr(ops, c["op"])
+        # inputs smaller than three L2s are cycled through three copies,
+        # so that each timed call reads them from device memory
+        sets = [c["args"]] + ([tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in c["args"]) for _ in range(2)]
+                              if c["bytes"] < 3 * L2_BYTES else [])
+        cycle = itertools.cycle(sets)
+        call_kernel = lambda: fn(*next(cycle), **c["kwargs"])  # noqa: E731
+        row["ms"] = device_ms(torch, call_kernel, reps=c["reps"])
+        row["device_ms"] = profiled_device_ms(torch, call_kernel,
+                                              reps=c["reps"])
+        row["plain_ms"] = device_ms(torch, lambda: c["plain"](
+            *c["args"], **c["kwargs"]), reps=max(1, c["reps"] // 5))
+        if c["library"] is None:
+            row["library_ms"] = lib_err = None
+        else:
+            lib_err = float((c["library"](*c["args"], **c["kwargs"]).float()
+                             - w).abs().max())
+            call = lambda: c["library"](*next(cycle), **c["kwargs"])  # noqa: E731
+            row["library_ms"] = device_ms(torch, call, reps=c["reps"])
+            row["library_device_ms"] = profiled_device_ms(torch, call,
+                                                          reps=c["reps"])
+        log(f"phase 6 {where}: kernel {row['ms']:.6f} ms (device "
+            f"{fmt_ms(row['device_ms'])}), plain "
+            f"{row['plain_ms']:.6f} ms, library "
+            + ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.6f} ms (device "
+               f"{fmt_ms(row['library_device_ms'])})")
+            + f", bound {row['bound_ms']:.6f} ms ({row['bound_by']}), max "
+            f"abs err {err:.3g} (limit {tol}, {used:.3f} of it used, "
+            f"{differ:.6f} of outputs differ, window -1/+1 over the limit "
+            f"in {off_by_one}; library vs plain {lib_err}) [{card}]")
+        per_case.append((c["op"], row))
+        del want, g, w, sets
+
+    entries = []
+    for name, src, replaces in MODEL_KERNELS:
+        rows = [r for op, r in per_case if op == name]
+        head = rows[0]
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/csrc/{src}.cu",
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            entry[k] = head[k]
+        entry["cases"] = rows
+        entries.append(entry)
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -654,29 +991,16 @@ def check_outputs(res: dict, n: int, grid: dict):
     check((res["storm_broken_frac"] > 0).any(), "main: no storm stage")
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False)", file=sys.stderr)
-        return 2
+def setup(torch):
+    """The card, its name and power limit, and every kernel built from
+    the checkout's sources (one nvcc each, all in parallel)."""
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.core.scenarios import FleetAggregates
-    from repro_torch.core.service import synthesize_fleet
-    from repro_torch.core.sweep_engine import SweepEngine
-    from repro_torch.core.timeline_sim import config_for_fleet
-    from repro_torch.graph import CallGraph
-    from repro_torch.graph.propagation import combined_dark_uniques
     from repro_torch.kernels import build
-    from repro_torch.kernels.backend import describe_device, resolve_device
-    from repro_torch.kernels.ufa.propagation import fixed_point_ell
-    from repro_torch.kernels.ufa.reduce import timeline_reduce
-
+    from repro_torch.kernels.backend import resolve_device
     device = resolve_device("cuda")
     card = card_line()
     log(card)
     log("torch", torch.__version__, "cuda", torch.version.cuda)
-
     t0 = time.perf_counter()
     reports = build.build_all()
     for name in build.SOURCES:
@@ -687,6 +1011,25 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    return device, card
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    device, card = setup(torch)
+    from repro_torch.core.scenarios import FleetAggregates
+    from repro_torch.core.service import synthesize_fleet
+    from repro_torch.core.sweep_engine import SweepEngine
+    from repro_torch.core.timeline_sim import config_for_fleet
+    from repro_torch.graph import CallGraph
+    from repro_torch.graph.propagation import combined_dark_uniques
+    from repro_torch.kernels.backend import describe_device
+    from repro_torch.kernels.ufa.propagation import fixed_point_ell
+    from repro_torch.kernels.ufa.reduce import timeline_reduce
 
     # phase 1
     k_reduce = phase_reduce(torch, device)
@@ -793,10 +1136,16 @@ def main() -> int:
     k_prop["launches_by_path"] = {"sweep": k_prop["launches"],
                                   "harden": launches["fixed_point_ell"]}
 
-    kernels = [k_reduce, k_prop, k_ingest]
+    # phase 6: the model kernels behind repro_torch.kernels.ops, counted
+    k_model = phase_model_kernels(torch, device, card)
+    log("phase 6 ok: " + ", ".join(
+        f"{e['name']} x{e['launches']} == plain" for e in k_model)
+        + f" at {sum(len(e['cases']) for e in k_model)} shapes [{card}]")
+
+    kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_by_path")
+            "library_ms", "launches_by_path", "cases")
     log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                 for e in kernels]}))
     dev = describe_device(device)

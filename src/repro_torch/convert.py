@@ -4,7 +4,9 @@ The system has no weights: its state is the fleet, the call graph and
 the constants derived from them.  ``from_reference_arrays`` builds the
 port's objects from plain numpy-valued mappings of the reference's
 objects (their dataclass fields), so both packages can be fed the same
-state without the port importing the reference.
+state without the port importing the reference.  ``to_tensor`` carries
+one reference array (model inputs, weights) into a tensor exactly,
+bfloat16 included.
 """
 
 from __future__ import annotations
@@ -80,3 +82,17 @@ def from_reference_arrays(*, fleet: Optional[Mapping] = None,
                                            device=dev)
                            for k, v in analytic.items()}
     return out
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """A copy of the reference array ``a`` (a JAX or numpy array) as a
+    torch tensor on ``device`` (default: the CUDA card), value for value.
+    bfloat16 included: ``np.asarray`` of a JAX bfloat16 array has dtype
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses, so it
+    goes through float32 (which holds every bfloat16 exactly) and back."""
+    dev = resolve_device(device)
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)

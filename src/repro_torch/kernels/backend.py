@@ -1,4 +1,4 @@
-"""Device helper shared by the port's entry points.
+"""Device helpers shared by the port's entry points and kernel wrappers.
 
 Every entry point takes ``device=`` and runs on the CUDA card unless the
 caller names another device.  There is no environment switch and no
@@ -39,3 +39,48 @@ def describe_device(device) -> dict:
                 "kind": torch.cuda.get_device_name(dev),
                 "count": torch.cuda.device_count()}
     return {"platform": "cpu", "kind": "cpu", "count": 1}
+
+
+# dtype codes of the model kernels' C entry points (csrc/common.cuh)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def kernel_route(who: str, *tensors: torch.Tensor) -> str:
+    """``"cpu"`` when every tensor lies on the CPU (the wrapper takes its
+    plain version), ``"cuda"`` when all lie on one CUDA device (it
+    launches its kernel); raises for mixed devices or any other device."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{who}: tensors on different devices "
+                         f"{sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: no kernel for {dev}")
+    return dev.type
+
+
+def kernel_dtype(who: str, *tensors: torch.Tensor) -> int:
+    """The dtype code of tensors that share float32 or bfloat16."""
+    dtypes = {t.dtype for t in tensors}
+    dtype = dtypes.pop() if len(dtypes) == 1 else None
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{who}: the kernel takes float32 or bfloat16, one "
+                        f"dtype for all, got {[str(t.dtype) for t in tensors]}")
+    return KERNEL_DTYPES[dtype]
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Unit stride on the last axis, and every row start 16-byte aligned:
+    what the kernels' vector loads need."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:-1]))
+
+
+def launch(who: str, fn, *args, device: torch.device) -> None:
+    """Call a C entry point with the device's current stream appended;
+    raise on the ``cudaError_t`` it returns."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{who} kernel launch failed: cudaError {rc}")

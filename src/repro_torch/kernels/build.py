@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
+Each of the seven ``csrc/<name>.cu`` sources (B1-B3 of the UFA path, B4-B7
+of ``kernels.ops``) exposes a plain C entry point and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/repro_torch_kernels/`` at the root of the checkout, then bound
-with ``ctypes``.  A library's file name carries a digest of its source
-and flags, so an edited kernel is rebuilt and a stale one is never
-loaded.  Nothing is compiled at import: the first wrapper call that
+with ``ctypes``.  A library's file name carries a digest of its source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited kernel is
+rebuilt and a stale one is never loaded.  Nothing is compiled at import: the first wrapper call that
 needs a library builds it, and ``build_all`` builds every library at
 once, one ``nvcc`` process per source, all started together.
 """
@@ -22,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("timeline_reduce", "fixed_point_ell", "ingest_hist")
+SOURCES = ("timeline_reduce", "fixed_point_ell", "ingest_hist", "rmsnorm",
+           "grouped_matmul", "decode_attention", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,10 +44,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lives: keyed by a digest of its source
-    and the compiler flags."""
+    """Where ``name``'s library lives: keyed by a digest of its source,
+    the shared headers and the compiler flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -1,0 +1,75 @@
+"""Flash attention (forward): the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention`` (Pallas
+``_flash_kernel``) behind ``repro/kernels/ops.py::flash_attention``:
+q, k, v in the model layout ``(B, S, H, d)`` with KV already repeated to
+H heads, read through their strides (no transposed copies); online
+softmax in float32; causal and sliding-window masks, with key tiles that
+the mask covers wholly skipped.  The kernel (``csrc/flash_attention.cu``)
+says what bounds it and how its design answers that.
+``flash_attention`` launches it for CUDA tensors and takes
+``ref.ref_flash_attention`` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import backend, build
+from repro_torch.kernels.ref import ref_flash_attention
+
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def _lib():
+    fn = build.load("flash_attention").flash_attention_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i,
+                       i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q, k, v (B, S, H, d), float32 or bfloat16, one dtype; ``window`` 0
+    = global, > 0 = keys with ``q_pos - k_pos < window``.  Returns
+    (B, S, H, d) in q's dtype.  CUDA tensors launch the kernel (counted in
+    ``flash_attention.launches``); CPU tensors take the plain version."""
+    if backend.kernel_route("flash_attention", q, k, v) == "cpu":
+        return ref_flash_attention(q, k, v, causal=causal, window=window)
+    dt = backend.kernel_dtype("flash_attention", q, k, v)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention: q, k, v (B, S, H, d) of one "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S, H, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes d in "
+                         f"{HEAD_DIMS}, got {d}")
+    if not all(backend.rows_aligned(t) for t in (q, k, v)):
+        raise ValueError("flash_attention: every row of q, k, v must be "
+                         "unit-strided and 16-byte aligned")
+    window = int(window)
+    if not 0 <= window < 2 ** 31 or max(B, S, H) >= 2 ** 31:
+        raise ValueError(f"flash_attention: window={window} or shape "
+                         f"{tuple(q.shape)} out of range")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
+                                         for s in t.stride()[:3]))
+    backend.launch("flash_attention", _lib(), q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(), strides, B, S, H, d,
+                   int(bool(causal)), window, 1.0 / math.sqrt(d), dt,
+                   device=q.device)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,62 @@
+"""RMSNorm: the CUDA kernel's wrapper and its plain PyTorch version.
+
+Replaces ``repro/kernels/rmsnorm.py::rmsnorm`` (Pallas
+``_rmsnorm_kernel``): ``y = (x * rsqrt(mean(x^2) + eps)) * scale`` over
+the last axis in float32, stored in x's dtype.  The kernel
+(``csrc/rmsnorm.cu``) says what bounds it and how its design answers
+that.  ``rmsnorm`` launches it for CUDA tensors and takes
+``ref.ref_rmsnorm`` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import backend, build
+from repro_torch.kernels.ref import ref_rmsnorm
+
+MAX_D = 16_384                   # 512 threads x 32 values a thread
+
+
+def _lib():
+    fn = build.load("rmsnorm").rmsnorm_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [p, p, p, ctypes.c_longlong, i, ctypes.c_float, i, i,
+                       i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x (..., D) contiguous, scale (D,); float32 or bfloat16 each.
+    CUDA tensors launch the kernel (counted in ``rmsnorm.launches``); CPU
+    tensors take the plain version."""
+    if backend.kernel_route("rmsnorm", x, scale) == "cpu":
+        return ref_rmsnorm(x, scale, eps)
+    x_dt = backend.kernel_dtype("rmsnorm", x)
+    s_dt = backend.kernel_dtype("rmsnorm", scale)
+    D = x.shape[-1] if x.dim() else 0
+    if x.dim() == 0 or scale.shape != (D,) or not 1 <= D <= MAX_D:
+        raise ValueError(f"rmsnorm: x (..., D) with 1 <= D <= {MAX_D} and "
+                         f"scale (D,), got {tuple(x.shape)} and "
+                         f"{tuple(scale.shape)}")
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("rmsnorm: x and scale must be contiguous")
+    y = torch.empty_like(x)
+    rows = x.numel() // D
+    if rows == 0:
+        return y
+    vec = int(all(t.data_ptr() % 16 == 0 for t in (x, scale, y)))
+    backend.launch("rmsnorm", _lib(), x.data_ptr(), scale.data_ptr(),
+                   y.data_ptr(), rows, D, float(eps), x_dt, s_dt, vec,
+                   device=x.device)
+    rmsnorm.launches += 1
+    return y
+
+
+rmsnorm.launches = 0

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import backend, build
 
 N_CODES = 4                      # 2-bit outcome code
 
@@ -60,11 +60,10 @@ def ingest_hist(edge_id: torch.Tensor, callee_failed: torch.Tensor,
     bool.  CUDA tensors launch the kernel (counted in
     ``ingest_hist.launches``); CPU tensors take ``ref_ingest_hist``.  An
     empty chunk or ``n_edges == 0`` gives zeros without a launch."""
-    if edge_id.device.type == "cpu":
+    if backend.kernel_route("ingest_hist", edge_id, callee_failed,
+                            caller_errored) == "cpu":
         return ref_ingest_hist(edge_id, callee_failed, caller_errored,
                                n_edges)
-    if edge_id.device.type != "cuda":
-        raise ValueError(f"ingest_hist: no kernel for {edge_id.device}")
     if (edge_id.dtype != torch.int32 or callee_failed.dtype != torch.bool
             or caller_errored.dtype != torch.bool):
         raise TypeError("ingest_hist: edge_id int32, callee_failed and "
@@ -73,9 +72,6 @@ def ingest_hist(edge_id: torch.Tensor, callee_failed: torch.Tensor,
     if (edge_id.dim() != 1 or callee_failed.shape != (N,)
             or caller_errored.shape != (N,)):
         raise ValueError("ingest_hist: three (N,) tensors")
-    if (callee_failed.device != edge_id.device
-            or caller_errored.device != edge_id.device):
-        raise ValueError("ingest_hist: tensors on different devices")
     n_edges = int(n_edges)
     if not 0 <= n_edges < 2 ** 31:
         raise ValueError(f"ingest_hist: n_edges={n_edges} out of range")
@@ -86,13 +82,9 @@ def ingest_hist(edge_id: torch.Tensor, callee_failed: torch.Tensor,
                             caller_errored.contiguous())
     counts = torch.empty((n_edges, N_CODES), dtype=torch.int32,
                          device=edge_id.device)
-    launch = _lib()
-    with torch.cuda.device(edge_id.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(eid.data_ptr(), failed.data_ptr(), errored.data_ptr(),
-                    N, n_edges, counts.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"ingest_hist kernel launch failed: cudaError {rc}")
+    backend.launch("ingest_hist", _lib(), eid.data_ptr(), failed.data_ptr(),
+                   errored.data_ptr(), N, n_edges, counts.data_ptr(),
+                   device=edge_id.device)
     ingest_hist.launches += 1
     return counts
 

@@ -26,7 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import backend, build
 
 
 # ---------------------------------------------------------------------------
@@ -106,10 +106,9 @@ def fixed_point_ell(dark: torch.Tensor, ell_dst: torch.Tensor,
     ``dark (S, n) bool -> (broken (S, n) bool, rounds)``.  CUDA tensors
     run the round kernel (one launch per round, counted); CPU tensors
     take ``ref_fixed_point``."""
-    if dark.device.type == "cpu":
+    if backend.kernel_route("fixed_point_ell", dark, ell_dst,
+                            ell_closed) == "cpu":
         return ref_fixed_point(dark, ell_dst, ell_closed)
-    if dark.device.type != "cuda":
-        raise ValueError(f"fixed_point_ell: no kernel for {dark.device}")
     S, n = dark.shape
     K = ell_dst.shape[1]
     if (dark.dtype != torch.bool or ell_dst.dtype != torch.int32
@@ -118,8 +117,6 @@ def fixed_point_ell(dark: torch.Tensor, ell_dst: torch.Tensor,
                         "ell_closed bool")
     if ell_dst.shape != (n, K) or ell_closed.shape != (n, K):
         raise ValueError("fixed_point_ell: ELL arrays must be (n, K)")
-    if ell_dst.device != dark.device or ell_closed.device != dark.device:
-        raise ValueError("fixed_point_ell: tensors on different devices")
     if S == 0 or n == 0 or K == 0:
         return dark, 1
     if bool(((ell_dst < 0) | (ell_dst >= n)).any()):
@@ -130,20 +127,16 @@ def fixed_point_ell(dark: torch.Tensor, ell_dst: torch.Tensor,
     changed = torch.zeros(1, dtype=torch.int32, device=dark.device)
     launch = _lib()
     rounds = 0
-    with torch.cuda.device(dark.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        while True:
-            rc = launch(cur.data_ptr(), nxt.data_ptr(), ell_dst.data_ptr(),
-                        ell_closed.data_ptr(), S, n, K, changed.data_ptr(),
-                        stream)
-            if rc != 0:
-                raise RuntimeError(f"fixed_point_ell round kernel launch "
-                                   f"failed: cudaError {rc}")
-            fixed_point_ell.launches += 1
-            rounds += 1
-            if not changed.item() or rounds >= n + 1:
-                return nxt, rounds
-            cur, nxt = nxt, cur
+    while True:
+        backend.launch("fixed_point_ell", launch, cur.data_ptr(),
+                       nxt.data_ptr(), ell_dst.data_ptr(),
+                       ell_closed.data_ptr(), S, n, K, changed.data_ptr(),
+                       device=dark.device)
+        fixed_point_ell.launches += 1
+        rounds += 1
+        if not changed.item() or rounds >= n + 1:
+            return nxt, rounds
+        cur, nxt = nxt, cur
 
 
 fixed_point_ell.launches = 0

@@ -27,7 +27,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import backend, build
 
 MAX_TIERS = 8                   # the kernel keeps per-tier state in registers
 
@@ -71,17 +71,13 @@ def timeline_reduce(avail: torch.Tensor, util: torch.Tensor,
     -> the scan-carry equivalents: four (S,) f32, restore_t (S, R) f32,
     below_seen (S, R) bool.  CUDA tensors launch the kernel; CPU tensors
     take ``ref_timeline_reduce``."""
-    if avail.device.type == "cpu":
-        return ref_timeline_reduce(avail, util, cloud, tier_frac, ts,
-                                   thresh=thresh)
-    if avail.device.type != "cuda":
-        raise ValueError(f"timeline_reduce: no kernel for {avail.device}")
+    args = (avail, util, cloud, tier_frac, ts)
+    if backend.kernel_route("timeline_reduce", *args) == "cpu":
+        return ref_timeline_reduce(*args, thresh=thresh)
     S, T = avail.shape
     R = tier_frac.shape[2]
-    args = (avail, util, cloud, tier_frac, ts)
-    if any(a.dtype != torch.float32 or a.device != avail.device
-           for a in args):
-        raise TypeError("timeline_reduce: float32 tensors on one device")
+    if any(a.dtype != torch.float32 for a in args):
+        raise TypeError("timeline_reduce: float32 tensors")
     if (util.shape != (S, T) or cloud.shape != (S, T)
             or tier_frac.shape != (S, T, R) or ts.shape != (T,)):
         raise ValueError("timeline_reduce: inconsistent shapes")
@@ -99,18 +95,13 @@ def timeline_reduce(avail: torch.Tensor, util: torch.Tensor,
                                      device=avail.device)}
     if S == 0:
         return out
-    launch = _lib()
-    with torch.cuda.device(avail.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(avail.data_ptr(), util.data_ptr(), cloud.data_ptr(),
-                    tier_frac.data_ptr(), ts.data_ptr(), S, T, R,
-                    float(thresh), out["avail_int"].data_ptr(),
-                    out["avail_min"].data_ptr(), out["util_peak"].data_ptr(),
-                    out["cloud_peak"].data_ptr(), out["restore_t"].data_ptr(),
-                    out["below_seen"].data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"timeline_reduce kernel launch failed: "
-                           f"cudaError {rc}")
+    backend.launch("timeline_reduce", _lib(), avail.data_ptr(),
+                   util.data_ptr(), cloud.data_ptr(), tier_frac.data_ptr(),
+                   ts.data_ptr(), S, T, R, float(thresh),
+                   out["avail_int"].data_ptr(), out["avail_min"].data_ptr(),
+                   out["util_peak"].data_ptr(), out["cloud_peak"].data_ptr(),
+                   out["restore_t"].data_ptr(), out["below_seen"].data_ptr(),
+                   device=avail.device)
     timeline_reduce.launches += 1
     return out
 

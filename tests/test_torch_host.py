@@ -129,7 +129,8 @@ def test_import_boundary_subprocess():
     assert len(mods) >= 20
     assert {"repro_torch.core.dependency", "repro_torch.core.static_analysis",
             "repro_torch.graph.planner",
-            "repro_torch.kernels.ufa.ingest"} <= set(mods)
+            "repro_torch.kernels.ufa.ingest", "repro_torch.kernels.ops",
+            "repro_torch.kernels.ref"} <= set(mods)
 
 
 def test_import_boundary_source_grep():

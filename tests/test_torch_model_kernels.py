@@ -1,0 +1,284 @@
+"""The port's model-kernel entry point, ``repro_torch.kernels.ops``, on the
+CPU: each op (the plain PyTorch version a wrapper takes for CPU tensors)
+against the reference's ``repro.kernels.ops`` (its Pallas kernels in
+interpret mode) and the reference's ``repro.kernels.ref`` oracles, on the
+same inputs made from a seed with numpy and carried across with
+``repro_torch.convert.to_tensor``.
+
+Tolerances are the reference's own (``tests/test_kernels.py``): flash
+attention 2e-5 (float32) / 2e-2 (bfloat16), decode attention 3e-5 /
+2e-2, grouped matmul 2e-3 / 3e-2, rmsnorm 1e-5 / 2e-2, rtol and atol."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels import ref as ref_oracle  # noqa: E402
+from repro_torch.convert import to_tensor  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+F32, BF16 = jnp.float32, jnp.bfloat16
+TOL = {"flash": (2e-5, 2e-2), "decode": (3e-5, 2e-2), "gmm": (2e-3, 3e-2),
+       "rmsnorm": (1e-5, 2e-2)}
+
+
+def _normal(seed, shape, dtype=F32):
+    """A reference array from a seeded numpy draw, and its port copy."""
+    a = jnp.asarray(np.random.default_rng(seed).standard_normal(shape)
+                    .astype(np.float32), dtype)
+    return a, to_tensor(a, device="cpu")
+
+
+def _close(got, want, kind, dtype):
+    tol = TOL[kind][0 if dtype == F32 else 1]
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# convert
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_to_tensor_is_exact(dtype):
+    vals = np.concatenate([
+        np.random.default_rng(0).standard_normal(1000) * 1e3,
+        [0.0, -0.0, 1.0, -1.5, 3.4e38, -3.4e38, 1e-38, 2.0 ** -133,
+         np.inf, -np.inf]]).astype(np.float32)
+    a = jnp.asarray(vals, dtype)
+    t = to_tensor(a, device="cpu")
+    want_dtype = torch.float32 if dtype == F32 else torch.bfloat16
+    assert t.dtype == want_dtype and t.shape == a.shape
+    np.testing.assert_array_equal(t.float().numpy(),
+                                  np.asarray(a, np.float32))
+    assert to_tensor(np.arange(5, dtype=np.int32), "cpu").dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# B4: rmsnorm
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (1, 128, F32), (7, 128, F32), (64, 512, F32), (33, 1024, F32),
+    (1, 1024, BF16), (7, 128, BF16), (64, 512, BF16),
+])
+def test_rmsnorm_matches_reference(rows, d, dtype):
+    x, xt = _normal(rows + d, (rows, d), dtype)
+    s, st = _normal(1, (d,), dtype)
+    got = ops.rmsnorm(xt, st)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    _close(got, ref_ops.rmsnorm(x, s), "rmsnorm", dtype)
+    _close(got, ref_oracle.ref_rmsnorm(x, s), "rmsnorm", dtype)
+
+
+def test_rmsnorm_leading_axes_mixed_scale_and_eps():
+    """(B, S, D) input, a float32 scale on bfloat16 activations, another
+    eps."""
+    x, xt = _normal(3, (2, 5, 256), BF16)
+    s, st = _normal(4, (256,), F32)
+    got = ops.rmsnorm(xt, st, eps=1e-5)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 5, 256)
+    _close(got, ref_ops.rmsnorm(x, s, 1e-5), "rmsnorm", BF16)
+
+
+# ---------------------------------------------------------------------------
+# B6: flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S,H,d,window,causal,dtype", [
+    (128, 2, 64, 0, True, F32),
+    (256, 4, 64, 64, True, F32),
+    (256, 1, 128, 100, True, F32),
+    (256, 2, 64, 300, True, F32),
+    (128, 2, 64, 0, False, F32),
+    (256, 2, 64, 64, False, F32),
+    (128, 2, 64, 0, True, BF16),
+    (256, 2, 128, 100, True, BF16),
+])
+def test_flash_attention_matches_reference(S, H, d, window, causal, dtype):
+    B = 2
+    (q, qt), (k, kt), (v, vt) = (_normal(10 + i, (B, S, H, d), dtype)
+                                 for i in range(3))
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, ref_ops.flash_attention(q, k, v, causal=causal,
+                                        window=window), "flash", dtype)
+    _close(got, ref_oracle.ref_flash_attention(q, k, v, causal=causal,
+                                               window=window),
+           "flash", dtype)
+
+
+def test_flash_attention_reads_strided_views():
+    """A (B, H, S, d) buffer viewed as (B, S, H, d): the same result as
+    its contiguous copy."""
+    (_, qt), (_, kt), (_, vt) = (_normal(20 + i, (1, 2, 64, 32))
+                                 for i in range(3))
+    views = [t.transpose(1, 2) for t in (qt, kt, vt)]
+    got = ops.flash_attention(*views, window=16)
+    want = ops.flash_attention(*[t.contiguous() for t in views], window=16)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# B5: decode attention
+# ---------------------------------------------------------------------------
+
+
+def _decode_inputs(seed, B, H, KV, K, d, dtype=F32):
+    q = _normal(seed, (B, H, d), dtype)
+    kc = _normal(seed + 1, (B, K, KV, d), dtype)
+    vc = _normal(seed + 2, (B, K, KV, d), dtype)
+    return q, kc, vc
+
+
+@pytest.mark.parametrize("length,window,kv", [
+    (1, 0, 1), (37, 64, 2), (256, 0, 4), (300, 300, 1), (511, 100, 2),
+    (700, 64, 4), (1024, 0, 2), (1024, 300, 4), (999, 0, 1),
+])
+def test_decode_attention_matches_reference(length, window, kv):
+    B, d, K = 2, 64, 1024
+    H = kv * 2
+    (q, qt), (kc, kct), (vc, vct) = _decode_inputs(length, B, H, kv, K, d)
+    got = ops.decode_attention(qt, kct, vct, length, window)
+    assert got.dtype == torch.float32 and got.shape == (B, H, d)
+    _close(got, ref_ops.decode_attention(q, kc, vc, length, window,
+                                         block_k=256), "decode", F32)
+    _close(got, ref_oracle.ref_decode_attention(q, kc, vc, length,
+                                                window=window),
+           "decode", F32)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_decode_attention_bf16_groups(group):
+    B, KV, K, d = 2, 2, 512, 128
+    (q, qt), (kc, kct), (vc, vct) = _decode_inputs(7, B, KV * group, KV, K,
+                                                   d, BF16)
+    got = ops.decode_attention(qt, kct, vct, 400, 128)
+    assert got.dtype == torch.bfloat16
+    _close(got, ref_ops.decode_attention(q, kc, vc, 400, 128), "decode",
+           BF16)
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+@pytest.mark.parametrize("length", [0, 1])
+def test_decode_attention_edge_lengths(length, as_tensor):
+    """length 0 gives exact zeros, as the Pallas kernel does (the
+    reference oracle gives NaN there); length 1 attends to position 0
+    only.  length and window as ints and as int32 tensors."""
+    (q, qt), (kc, kct), (vc, vct) = _decode_inputs(3, 2, 4, 2, 256, 64)
+    arg = (lambda n: torch.tensor(n, dtype=torch.int32)) if as_tensor \
+        else (lambda n: n)
+    got = ops.decode_attention(qt, kct, vct, arg(length), arg(64))
+    want = np.asarray(ref_ops.decode_attention(q, kc, vc, length, 64))
+    _close(got, want, "decode", F32)
+    if length == 0:
+        assert not got.any() and not np.any(want)
+    else:
+        # one position: the output is that position's V row, per KV head
+        np.testing.assert_allclose(
+            got.numpy(), np.repeat(vct[:, 0].numpy(), 2, axis=1),
+            rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# B7: grouped matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("E,C,D,F,dtype", [
+    (2, 128, 256, 128, F32),
+    (4, 256, 512, 256, F32),
+    (2, 128, 256, 128, BF16),
+])
+def test_grouped_matmul_matches_reference(E, C, D, F, dtype):
+    x, xt = _normal(0, (E, C, D), dtype)
+    w, wt = _normal(1, (E, D, F), dtype)
+    got = ops.grouped_matmul(xt, wt)
+    assert got.dtype == xt.dtype and got.shape == (E, C, F)
+    _close(got, ref_ops.grouped_matmul(x, w), "gmm", dtype)
+    _close(got, ref_oracle.ref_grouped_matmul(x, w), "gmm", dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_grouped_matmul_ragged(dtype):
+    """Shapes off every block size (the reference's Pallas kernel asserts
+    divisibility; the oracle holds the port)."""
+    x, xt = _normal(5, (3, 50, 100), dtype)
+    w, wt = _normal(6, (3, 100, 70), dtype)
+    _close(ops.grouped_matmul(xt, wt), ref_oracle.ref_grouped_matmul(x, w),
+           "gmm", dtype)
+
+
+# ---------------------------------------------------------------------------
+# the slice: the four ops composed, port against reference
+# ---------------------------------------------------------------------------
+
+
+def _block(m, x, scale, wq, wk, wv, w_up):
+    """norm -> q/k/v -> causal windowed attention -> decode of the last
+    token against the cache -> expert product, through one package's ops
+    (``m``)."""
+    B, S, D = x.shape
+    H, d = 4, 32
+    h = m.rmsnorm(x, scale)
+    q, k, v = ((h @ w).reshape(B, S, H, d) for w in (wq, wk, wv))
+    att = m.flash_attention(q, k, v, causal=True, window=24)
+    # the cache in the model layout, 2 KV heads (every other head)
+    kc, vc = k[:, :, ::2], v[:, :, ::2]
+    dec = m.decode_attention(q[:, -1], kc, vc, S, 24)
+    tokens = att.reshape(B * S, H * d)[: 4 * 16].reshape(4, 16, H * d)
+    return att, dec, m.grouped_matmul(tokens, w_up)
+
+
+def test_ops_slice_matches_reference():
+    rng = np.random.default_rng(42)
+    B, S, D = 2, 64, 96
+    arrays = [rng.standard_normal(s).astype(np.float32) * f for s, f in (
+        ((B, S, D), 1.0), ((D,), 1.0), ((D, 128), 0.1), ((D, 128), 0.1),
+        ((D, 128), 0.1), ((4, 128, 48), 0.1))]
+    ref = _block(ref_ops, *[jnp.asarray(a) for a in arrays])
+    port = _block(ops, *[to_tensor(a, device="cpu") for a in arrays])
+    for got, want, kind in zip(port, ref, ("flash", "decode", "gmm")):
+        _close(got, want, kind, F32)
+    # decode of the last token sees what flash attention's last row saw,
+    # on the KV heads the decode cache keeps
+    att, dec, _ = port
+    np.testing.assert_allclose(dec[:, ::2].numpy(), att[:, -1, ::2].numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: no launch on the CPU, a refusal anywhere else
+# ---------------------------------------------------------------------------
+
+
+def _meta(*shape):
+    return torch.empty(shape, device="meta")
+
+
+@pytest.mark.parametrize("op,args", [
+    ("rmsnorm", lambda: (_meta(4, 128), _meta(128))),
+    ("flash_attention", lambda: (_meta(1, 64, 2, 32),) * 3),
+    ("decode_attention", lambda: (_meta(1, 2, 32), _meta(1, 64, 1, 32),
+                                  _meta(1, 64, 1, 32), 10)),
+    ("grouped_matmul", lambda: (_meta(2, 8, 16), _meta(2, 16, 8))),
+])
+def test_wrappers_refuse_meta_and_launch_nothing_on_cpu(op, args):
+    fn = getattr(ops, op)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        fn(*args())
+    cpu = [torch.zeros(a.shape) if isinstance(a, torch.Tensor) else a
+           for a in args()]
+    before = fn.launches
+    out = fn(*cpu)
+    assert fn.launches == before and out.device.type == "cpu"
+    assert torch.isfinite(out).all()
