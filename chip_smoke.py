@@ -38,27 +38,47 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      times the stages;
   6. drives the model-kernel entry point, ``repro_torch.kernels.ops``,
      at the full widths of llama3.2-3b, gemma3-4b, qwen3-1.7b and
-     phi3.5-moe: rmsnorm (hidden norm and qk-norm), flash attention
+     phi3.5-moe: rmsnorm (hidden norm and qk-norm, and mamba2-780m's
+     norms at its prefill and decode shapes), flash attention
      (causal prefill, sliding window), decode attention (GQA decode,
      local and global layers, length 1 and 0 from device tensors) and
      the grouped expert matmul (up and down projections), bf16 and fp32
      (fp32 also at gemma3-4b's window 1024, where the window bites),
-     plus ragged edge cases; checks that each of the four kernels was
-     launched once per shape, holds every output against its plain
-     version on the same inputs, and times the kernel (CUDA events and
-     profiler device time), the plain version and the PyTorch library
-     call that computes the same function.
+     plus ragged edge cases, and the SSD chunked scan at mamba2-780m's
+     full width (B 2 x S 4,096, H 48, P 64, N 128, chunk 256; fp32 and
+     bf16), hymba-1.5b's SSM heads (H 50, N 16) and edges (G = H, one
+     chunk, strong decay, a near 0, ragged P, N and chunk); checks that
+     each of the five kernels was launched once per shape, holds every
+     output against its plain version on the same inputs (and the fp32
+     SSD cases against the model's ``ssd_chunked`` in float64), and
+     times the kernel (CUDA events and profiler device time), the plain
+     version and the PyTorch library call that computes the same
+     function, where there is one;
+  7. runs the mamba2-780m model through ``repro_torch.models`` at full
+     width: the fp32 forward of 2 layers (B 1 x S 512) against the port's
+     CPU run on the same weights; the fp32 forward of 4 layers (B 2 x S
+     512, two chunks) against 512 teacher-forced decode steps; and all 48
+     layers in bf16 from the port's seeded init: prefill B 2 x S 4,096
+     with the counts zeroed just before and read just after (the SSD
+     kernel once a layer, rmsnorm twice a layer and once more), its time
+     by CUDA events, the profiler's top device ops and the SSD kernel's
+     share, the peak device memory, and bf16 decode steps at B 8.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
 integral and mean, float32 sums in another order, rtol 3e-6 (kernel) and
 1e-5 (engine); the model kernels in float32 at the reference's own
 tolerances (tests/test_kernels.py, rtol = atol: flash 2e-5, decode 3e-5,
-grouped matmul 2e-3, rmsnorm 1e-5); in bfloat16 within one rounding
+grouped matmul 2e-3, rmsnorm 1e-5, SSD scan 2e-3, its state always
+float32); in bfloat16 within one rounding
 step of each value (2^-7 of it) plus 2^-14 of the largest |plain|, and
 at most 5% of the outputs differing at all; every case whose window
 bites also shows that the plain version at window -1 and +1 falls
-outside its limit; decode at length 0 exactly zero.  Any failure exits
+outside its limit; decode at length 0 exactly zero; the fp32 SSD scan no
+further from a float64 evaluation than its plain version (or within
+1e-5 of it); the model's card forward within rtol = atol = 1e-4 of the
+CPU run and its teacher-forced decode within 2e-3 of max|logit| of the
+forward (the CPU tests' tolerances).  Any failure exits
 non-zero.  The last two lines of
 standard output are a JSON object of the kernels' numbers and the JSON
 result line; without a CUDA device the script exits 2 and prints no
@@ -70,6 +90,7 @@ one.
 from __future__ import annotations
 
 import cProfile
+import dataclasses
 import io
 import itertools
 import json
@@ -102,10 +123,19 @@ RELAY_CHAIN_FRACTION = 0.3  # multi-hop case of phase 2
 HIST_CHUNK = 4_000_000      # one chunk of the detector's stream (phase 4)
 DETECT_SEED = 7             # the fleet and stream seed of phases 4 and 5
 MODEL_SEED = 15             # the random inputs of phase 6
+MODEL7_SEED = 16            # phase 7's weights and tokens
+MODEL7_TOL = 1e-4           # phase 7a, card vs CPU: tests/test_torch_models
+DECODE_TOL = 2e-3           # phase 7b, of max|logit|: tests/test_models.py
+PREFILL_SHAPE = (2, 4096)   # phase 7c: batch x sequence
+DECODE_BATCH = 8
 # phase 6 float32 tolerances (rtol = atol): the reference's own,
 # tests/test_kernels.py
 MODEL_F32_TOL = {"flash_attention": 2e-5, "decode_attention": 3e-5,
-                 "grouped_matmul": 2e-3, "rmsnorm": 1e-5}
+                 "grouped_matmul": 2e-3, "rmsnorm": 1e-5, "ssd_scan": 2e-3}
+# B8 against the model's ssd_chunked in float64: no further from it
+# than the plain float32 version, or within this much of it (both
+# relative to 1 + |float64 value|)
+SSD_TRUTH_FLOOR = 1e-5
 # bfloat16: kernel and plain version both compute in float32 and round
 # once to bfloat16 (8 significant bits), so an output may differ by one
 # rounding step, at most 2^-7 of its value; 2^-14 of the largest |plain|
@@ -125,6 +155,7 @@ MODEL_KERNELS = (
      "src/repro/kernels/flash_attention.py:102"),
     ("grouped_matmul", "grouped_matmul",
      "src/repro/kernels/grouped_matmul.py:49"),
+    ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:81"),
 )
 
 
@@ -643,9 +674,10 @@ def phase_harden(torch, device, fs, card: str) -> dict:
     return launches
 
 
-def profile_run(what: str, torch, fn, card: str) -> None:
+def profile_run(what: str, torch, fn, card: str) -> dict:
     """One profiled call of ``fn``: the kernel table and the device's
-    busy time against the wall."""
+    busy time against the wall.  Returns device microseconds by kernel
+    name (empty when the trace holds no device time)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -669,6 +701,7 @@ def profile_run(what: str, torch, fn, card: str) -> None:
             log(f"profile {what}: {us:12.1f} us  {name[:90]}")
     else:
         log(f"profile {what}: no device time in the trace; not measured")
+    return kernels_us
 
 
 # ---------------------------------------------------------------------------
@@ -738,17 +771,29 @@ def model_cases(torch, device):
     cases = []
 
     def add(op, label, args, kwargs, plain, library, bytes_moved, flops,
-            dtype, reps, check=None, shift=None):
+            dtype, reps, check=None, shift=None, truth=None, bf16_flops=0):
         cases.append(dict(op=op, label=label, args=args, kwargs=kwargs,
                           plain=plain, library=library,
                           bytes=bytes_moved, flops=flops, dtype=dtype,
-                          reps=reps, check=check, shift=shift))
+                          reps=reps, check=check, shift=shift, truth=truth,
+                          bf16_flops=bf16_flops))
 
-    # B4: llama3.2-3b hidden norm (B 4 x S 4,096 tokens), qwen3 qk-norm
+    # B4: llama3.2-3b hidden norm (B 4 x S 4,096 tokens), qwen3 qk-norm;
+    # mamba2-780m's norms as phase 7c gives them: ln1 and final_norm at
+    # d_model 1,536 and the gated norm at d_inner 3,072, over the prefill's
+    # 2 x 4,096 tokens and the decode step's batch of 8
     for label, (R, D), dt in (("llama3.2-3b hidden norm", (16384, 3072), bf16),
                               ("llama3.2-3b hidden norm", (16384, 3072), f32),
                               ("qwen3-1.7b qk-norm", (262144, 128), bf16),
-                              ("edge: odd rows and width", (1001, 1001), bf16)):
+                              ("edge: odd rows and width", (1001, 1001), bf16),
+                              ("mamba2-780m ln1 / final_norm, prefill",
+                               (8192, 1536), bf16),
+                              ("mamba2-780m gated norm, prefill",
+                               (8192, 3072), bf16),
+                              ("mamba2-780m ln1 / final_norm, decode B 8",
+                               (8, 1536), bf16),
+                              ("mamba2-780m gated norm, decode B 8",
+                               (8, 3072), bf16)):
         x, s = randn(R, D, dtype=dt), randn(D, dtype=dt)
         size = x.element_size()
         add("rmsnorm", label, (x, s), {}, ref.ref_rmsnorm,
@@ -842,7 +887,60 @@ def model_cases(torch, device):
         add("grouped_matmul", label, (x, w), {}, ref.ref_grouped_matmul,
             torch.bmm, (E * C * D + E * D * Fo + E * C * Fo)
             * x.element_size(), 2 * E * C * D * Fo, dt, reps)
+
+    # B8: mamba2-780m's SSD at full width (d_model 1,536, expand 2: H 48,
+    # P 64, N 128, one group, chunk 256) over B 2 x S 4,096, fp32 (what the
+    # model hands it) and bf16; hymba-1.5b's SSM heads (H 50, N 16); edges
+    def ssd_case(label, B, S, H, G, P, N, chunk, dt_kind, a_kind, dtype,
+                 reps):
+        x = randn(B, S, H, P, dtype=dtype)
+        z = randn(B, S, H, dtype=f32)
+        dt = F.softplus(z) + (2.0 if dt_kind == "strong" else 0.0)
+        a = -torch.exp(randn(H, dtype=f32))
+        if a_kind == "near 0":
+            a = a * 1e-5
+        b, c = randn(B, S, G, N, dtype=dtype), randn(B, S, G, N, dtype=dtype)
+        size = x.element_size()
+        tri, nc = chunk * (chunk + 1) // 2, S // chunk
+        # C B^T over the causal half, once per group: the heads of a group
+        # share it and only its c(c+1)/2 products take their own decay
+        cb_flops = B * G * nc * 2 * tri * N
+        # per head: the masked scores times dt*x, the chunk's own state,
+        # and the carry-in for every chunk but the first
+        head_flops = B * H * (nc * (2 * tri * P + 2 * chunk * N * P)
+                              + (nc - 1) * 2 * chunk * N * P)
+        bytes_moved = (2 * B * S * H * P * size + 2 * B * S * G * N * size
+                       + B * S * H * 4 + H * 4 + B * H * P * N * 4)
+        add("ssd_scan", label, (x, dt, a, b, c), {"chunk": chunk},
+            ref.ref_ssd_scan, None, bytes_moved, cb_flops + head_flops,
+            dtype, reps, truth=ssd_float64 if dtype == f32 else None,
+            bf16_flops=cb_flops if dtype == bf16 else 0)
+
+    for args in (
+            ("mamba2-780m SSD", 2, 4096, 48, 1, 64, 128, 256, "", "", f32, 10),
+            ("mamba2-780m SSD", 2, 4096, 48, 1, 64, 128, 256, "", "", bf16,
+             10),
+            ("hymba-1.5b SSM heads", 2, 4096, 50, 1, 64, 16, 256, "", "",
+             bf16, 10),
+            ("edge: G = H", 1, 512, 48, 48, 64, 128, 256, "", "", f32, 20),
+            ("edge: one chunk", 1, 256, 48, 1, 64, 128, 256, "", "", f32, 20),
+            ("edge: strong decay (dt + 2)", 1, 1024, 48, 1, 64, 128, 256,
+             "strong", "", f32, 20),
+            ("edge: a near 0 (a * 1e-5)", 1, 1024, 48, 1, 64, 128, 256, "",
+             "near 0", f32, 20),
+            ("edge: ragged P 20, N 10, chunk 48", 1, 96, 3, 1, 20, 10, 48,
+             "", "", f32, 20)):
+        ssd_case(*args)
     return ops, cases
+
+
+def ssd_float64(x, dt, a, b, c, chunk):
+    """The model's plain SSD algorithm, ``ssd_chunked``, in float64 on the
+    same inputs: what B8 and its plain version are both held to for
+    accuracy."""
+    import torch
+    from repro_torch.models.layers import ssd_chunked
+    return ssd_chunked(x, dt, a, b, c, chunk, dtype=torch.float64)
 
 
 def phase_model_kernels(torch, device, card: str) -> list:
@@ -851,8 +949,7 @@ def phase_model_kernels(torch, device, card: str) -> list:
     against the plain version on the same inputs, and the kernel, the
     plain version and the library call timed."""
     ops, cases = model_cases(torch, device)
-    names = ("rmsnorm", "decode_attention", "flash_attention",
-             "grouped_matmul")
+    names = tuple(name for name, _, _ in MODEL_KERNELS)
     for name in names:
         getattr(ops, name).launches = 0
     torch.cuda.synchronize()
@@ -868,30 +965,43 @@ def phase_model_kernels(torch, device, card: str) -> list:
     for c, out in zip(cases, outs):
         where = f"{c['op']}, {c['label']}"
         want = c["plain"](*c["args"], **c["kwargs"])
-        check(out.dtype == want.dtype and out.shape == want.shape,
-              f"{where}: {out.dtype}{tuple(out.shape)}, want "
-              f"{want.dtype}{tuple(want.shape)}")
-        check(bool(torch.isfinite(out).all()), f"{where}: non-finite output")
-        g, w = out.float(), want.float()
-        diff = (g - w).abs()
-        err = float(diff.max())
-        lim, tol = model_limit(torch, c["op"], c["dtype"], w)
-        over = int((diff > lim).sum())
-        check(over == 0, f"{where}: {over} entries beyond {tol} "
-              f"(max abs err {err:.3g})")
-        used = float(torch.where(lim > 0, diff / lim, diff).max())
-        differ = float((out != want).float().mean())
-        if c["dtype"] == torch.bfloat16:
-            check(differ <= BF16_MAX_DIFFER, f"{where}: {differ:.4f} of the "
-                  f"outputs differ from the plain version's, more than "
-                  f"{BF16_MAX_DIFFER} (a store that does not round to "
-                  f"nearest even?)")
+        # ssd_scan returns (y, state): each part is held to the limit of
+        # its own dtype (y in x's, the state always float32)
+        outs_c = out if isinstance(out, tuple) else (out,)
+        wants_c = want if isinstance(want, tuple) else (want,)
+        err = used = 0.0
+        tols, differs = [], []
+        for o, wt in zip(outs_c, wants_c):
+            check(o.dtype == wt.dtype and o.shape == wt.shape,
+                  f"{where}: {o.dtype}{tuple(o.shape)}, want "
+                  f"{wt.dtype}{tuple(wt.shape)}")
+            check(bool(torch.isfinite(o).all()), f"{where}: non-finite output")
+            g, wf = o.float(), wt.float()
+            diff = (g - wf).abs()
+            err = max(err, float(diff.max()))
+            lim, tol = model_limit(torch, c["op"], o.dtype, wf)
+            over = int((diff > lim).sum())
+            check(over == 0, f"{where}: {over} entries beyond {tol} "
+                  f"(max abs err {float(diff.max()):.3g})")
+            used = max(used, float(torch.where(lim > 0, diff / lim,
+                                               diff).max()))
+            differ = float((o != wt).float().mean())
+            if o.dtype == torch.bfloat16:
+                check(differ <= BF16_MAX_DIFFER, f"{where}: {differ:.4f} of "
+                      f"the outputs differ from the plain version's, more "
+                      f"than {BF16_MAX_DIFFER} (a store that does not round "
+                      f"to nearest even?)")
+            tols.append(tol)
+            differs.append(differ)
+            del diff, g
+        w = wants_c[0].float()
         if c["check"] is not None:
             check(c["check"](out), f"{where}: edge case check failed")
         # where the window bites, the limit must see it off by one: the
         # plain version at window -1 and +1, held to the same limit, fails
         off_by_one = None
         if c["shift"] is not None:
+            lim = model_limit(torch, c["op"], outs_c[0].dtype, w)[0]
             off_by_one = []
             for e in (-1, 1):
                 a, kw = c["shift"](e)
@@ -900,15 +1010,35 @@ def phase_model_kernels(torch, device, card: str) -> list:
                 del alt
             check(min(off_by_one) > 0, f"{where}: the limit cannot tell "
                   f"the window from window -1 / +1 ({off_by_one})")
-        del diff, lim
-        rate = BF16_OPS_PER_S if c["dtype"] == torch.bfloat16 \
-            else F32_OPS_PER_S
-        if c["op"] == "rmsnorm":
-            rate = F32_OPS_PER_S      # elementwise float32 math either way
-        t_bytes, t_ops = c["bytes"] / MEM_BYTES_PER_S, c["flops"] / rate
-        row = {"label": c["label"], "max_abs_err": err, "tol": tol,
-               "limit_used": used, "differ_share": differ,
+            del lim
+        # accuracy: kernel and plain version against a float64 evaluation
+        truth_err = None
+        if c["truth"] is not None:
+            exact = c["truth"](*c["args"], **c["kwargs"])
+
+            def rel(parts):
+                return max(float(((p.double() - t).abs() / (1 + t.abs()))
+                                 .max()) for p, t in zip(parts, exact))
+            truth_err = {"kernel": rel(outs_c), "plain": rel(wants_c)}
+            check(truth_err["kernel"] <= max(truth_err["plain"],
+                                             SSD_TRUTH_FLOOR),
+                  f"{where}: the kernel is further from the float64 "
+                  f"evaluation ({truth_err['kernel']:.3g}) than the plain "
+                  f"version ({truth_err['plain']:.3g})")
+            del exact
+        if c["op"] in ("rmsnorm", "ssd_scan"):
+            # float32 math either way, but a product of two bf16 inputs
+            # (B8's C B^T) takes the tensor cores' bf16 rate, float32 sums
+            t_ops = ((c["flops"] - c["bf16_flops"]) / F32_OPS_PER_S
+                     + c["bf16_flops"] / BF16_OPS_PER_S)
+        else:
+            t_ops = c["flops"] / (BF16_OPS_PER_S if c["dtype"] ==
+                                  torch.bfloat16 else F32_OPS_PER_S)
+        t_bytes = c["bytes"] / MEM_BYTES_PER_S
+        row = {"label": c["label"], "max_abs_err": err, "tol": ", ".join(tols),
+               "limit_used": used, "differ_share": differs[0],
                "window_off_by_one_over": off_by_one,
+               "float64_rel_err": truth_err,
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         fn = getattr(ops, c["op"])
@@ -940,11 +1070,12 @@ def phase_model_kernels(torch, device, card: str) -> list:
                else f"{row['library_ms']:.6f} ms (device "
                f"{fmt_ms(row['library_device_ms'])})")
             + f", bound {row['bound_ms']:.6f} ms ({row['bound_by']}), max "
-            f"abs err {err:.3g} (limit {tol}, {used:.3f} of it used, "
-            f"{differ:.6f} of outputs differ, window -1/+1 over the limit "
-            f"in {off_by_one}; library vs plain {lib_err}) [{card}]")
+            f"abs err {err:.3g} (limit {row['tol']}, {used:.3f} of it used, "
+            f"{differs} of outputs differ, window -1/+1 over the limit "
+            f"in {off_by_one}; library vs plain {lib_err}; vs float64 "
+            f"{truth_err}) [{card}]")
         per_case.append((c["op"], row))
-        del want, g, w, sets
+        del want, w, sets, outs_c, wants_c
 
     entries = []
     for name, src, replaces in MODEL_KERNELS:
@@ -960,6 +1091,167 @@ def phase_model_kernels(torch, device, card: str) -> list:
         entries.append(entry)
     return entries
 
+
+# ---------------------------------------------------------------------------
+# phase 7: the mamba2-780m model (forward and decode) on the card
+# ---------------------------------------------------------------------------
+
+
+def to_cpu(tree):
+    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def host_tokens(cfg, B: int, S: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+
+
+def phase_model(torch, device, card: str) -> dict:
+    """Phase 7: mamba2-780m at full width through ``repro_torch.models``.
+    (a) 2 layers, fp32, B 1 x S 512: the card's forward (hidden, last
+    position's logits) against the port's CPU run on the same weights;
+    (b) 4 layers, fp32, B 2 x S 512 (two chunks: the carry): forward
+    logits against 512 teacher-forced decode steps on the card; (c) all
+    48 layers, bf16, the port's seeded init: prefill B 2 x S 4,096 with
+    the kernel counts zeroed just before and read just after (B8 once a
+    layer, B4 twice a layer plus the final norm), its time, the
+    profiler's device ops, the peak memory, and bf16 decode at B 8."""
+    from repro_torch import models
+    from repro_torch.configs import mamba2_780m
+    from repro_torch.kernels import ops
+    full = mamba2_780m.CONFIG
+    f32 = dataclasses.replace(full, param_dtype="float32",
+                              activ_dtype="float32")
+    out = {}
+
+    # (a) the card against the port's CPU run
+    cfg = dataclasses.replace(f32, n_layers=2)
+    params = models.init_params(cfg, MODEL7_SEED, device=device)
+    toks = torch.from_numpy(host_tokens(cfg, 1, 512, MODEL7_SEED))
+    h, _ = models.forward(params, cfg, toks.to(device))
+    last = models.logits_fn(params, cfg, h[:, -1:])
+    t0 = time.perf_counter()
+    cpu_params = to_cpu(params)
+    h_cpu, _ = models.forward(cpu_params, cfg, toks)
+    last_cpu = models.logits_fn(cpu_params, cfg, h_cpu[:, -1:])
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for name, got, want in (("hidden", h, h_cpu), ("logits", last, last_cpu)):
+        got = got.cpu()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"phase 7a: {name} {tuple(got.shape)} or non-finite")
+        d = (got - want).abs()
+        over = int((d > MODEL7_TOL * (1 + want.abs())).sum())
+        errs[name] = float(d.max())
+        check(over == 0, f"phase 7a: {name} differs from the CPU run beyond "
+              f"rtol=atol={MODEL7_TOL} in {over} entries (max abs "
+              f"{errs[name]:.3g})")
+    out["cpu_vs_card"] = errs
+    log(f"phase 7a ok: 2-layer fp32 forward, card == CPU (max abs err hidden "
+        f"{errs['hidden']:.3g}, logits {errs['logits']:.3g}; limit rtol=atol="
+        f"{MODEL7_TOL}); CPU run {cpu_s:.2f} s")
+    del params, cpu_params, h, h_cpu
+
+    # (b) forward against teacher-forced decode, both on the card
+    cfg = dataclasses.replace(f32, n_layers=4)
+    params = models.init_params(cfg, MODEL7_SEED + 1, device=device)
+    B, S = 2, 512
+    toks = torch.from_numpy(host_tokens(cfg, B, S, MODEL7_SEED + 1)).to(device)
+    full_logits = models.logits_fn(params, cfg,
+                                   models.forward(params, cfg, toks)[0])
+    state = models.init_decode_state(cfg, B, S, torch.float32, device=device)
+    worst = 0.0
+    t0 = time.perf_counter()
+    for t in range(S):
+        lg, state = models.decode_step(params, cfg, state, toks[:, t])
+        worst = max(worst, float((lg - full_logits[:, t]).abs().max()))
+    dec_s = time.perf_counter() - t0
+    scale = float(full_logits.abs().max())
+    out["decode_vs_forward"] = {"max_abs_err": worst, "max_abs_logit": scale}
+    check(np.isfinite(worst) and worst <= DECODE_TOL * scale,
+          f"phase 7b: teacher-forced decode differs from the forward by "
+          f"{worst:.3g}, over {DECODE_TOL} x max|logit| {scale:.3g}")
+    log(f"phase 7b ok: 4-layer fp32, {S} teacher-forced decode steps == "
+        f"forward (max abs err {worst:.3g} = {worst / scale:.3g} of max|logit| "
+        f"{scale:.3g}; limit {DECODE_TOL}); {1e3 * dec_s / S:.3f} ms a step "
+        f"[{card}]")
+    del params, state, full_logits
+
+    # (c) the full model in bf16: prefill counted, timed and profiled
+    params = models.init_params(full, MODEL7_SEED + 2, device=device)
+    n_params = sum(v.numel() for v in _leaves(params))
+    check(n_params == full.param_count(), f"phase 7c: {n_params} parameters, "
+          f"want {full.param_count()}")
+    B, S = PREFILL_SHAPE
+    toks = torch.from_numpy(host_tokens(full, B, S, MODEL7_SEED + 2)).to(device)
+
+    def prefill():
+        h, _ = models.forward(params, full, toks)
+        return h, models.logits_fn(params, full, h[:, -1:])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.ssd_scan.launches = 0
+    ops.rmsnorm.launches = 0
+    torch.cuda.synchronize()
+    h, last = prefill()
+    torch.cuda.synchronize()
+    launches = {"ssd_scan": ops.ssd_scan.launches,
+                "rmsnorm": ops.rmsnorm.launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"ssd_scan": full.n_layers, "rmsnorm": 2 * full.n_layers + 1}
+    check(launches == want, f"phase 7c: launches {launches}, want {want}")
+    check(h.shape == (B, S, full.d_model) and h.dtype == torch.bfloat16
+          and last.shape == (B, 1, full.vocab_size)
+          and bool(torch.isfinite(h).all())
+          and bool(torch.isfinite(last).all()),
+          f"phase 7c: hidden {h.dtype}{tuple(h.shape)}, logits "
+          f"{tuple(last.shape)}, or non-finite values")
+    ms = device_ms(torch, prefill, reps=3, warmup=1)
+    out["prefill"] = {"batch": B, "seq": S, "ms": ms,
+                      "tokens_per_s": B * S / (ms / 1e3),
+                      "peak_bytes": peak, "launches": launches,
+                      "params": n_params}
+    log(f"phase 7c: mamba2-780m bf16 {full.n_layers} layers, {n_params} "
+        f"parameters; prefill B {B} x S {S} (forward + last-position logits)"
+        f" {ms:.3f} ms = {B * S / (ms / 1e3):.1f} tokens/s; launches "
+        f"{launches}; peak device memory {peak / 2**30:.3f} GiB [{card}]")
+    kernels_us = profile_run("prefill", torch, prefill, card)
+    busy_us = sum(kernels_us.values())
+    ssd_us = sum(us for k, us in kernels_us.items() if "ssd_" in k)
+    out["prefill"]["ssd_share"] = ssd_us / busy_us if busy_us > 0 else None
+    log(f"profile prefill: B8 (ssd_*) {ssd_us:.1f} us of {busy_us:.1f} us "
+        f"of device time [{card}]")
+    del h, last
+
+    # bf16 decode at B 8: ms a step, one token per sequence a step
+    Bd = DECODE_BATCH
+    state = models.init_decode_state(full, Bd, 64, device=device)
+    tok = torch.from_numpy(host_tokens(full, Bd, 1, 3)[:, 0]).to(device)
+    for _ in range(2):
+        lg, state = models.decode_step(params, full, state, tok)
+    check(bool(torch.isfinite(lg).all()) and lg.shape == (Bd, full.vocab_size),
+          "phase 7c: decode logits")
+
+    def step():
+        nonlocal state
+        _, state = models.decode_step(params, full, state, tok)
+
+    step_ms = device_ms(torch, step, reps=8, warmup=0)
+    out["decode"] = {"batch": Bd, "ms_per_step": step_ms,
+                     "tokens_per_s": Bd / (step_ms / 1e3)}
+    log(f"phase 7c: bf16 decode B {Bd}: {step_ms:.3f} ms a step "
+        f"({Bd / (step_ms / 1e3):.1f} tokens/s) [{card}]")
+    out["launches"] = launches
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path
@@ -1131,16 +1423,31 @@ def main() -> int:
         f"{k_ingest['bound_ms']:.6f} ms [{card}]")
 
     # phase 5: detection to hardening, counted
+    # a kernel's "launches" is its count on the newest main path that runs
+    # it; "launches_by_path" keeps every path's count
     launches = phase_harden(torch, device, dfs, card)
     k_ingest["launches"] = launches["ingest_hist"]
     k_prop["launches_by_path"] = {"sweep": k_prop["launches"],
                                   "harden": launches["fixed_point_ell"]}
+    k_prop["launches"] = launches["fixed_point_ell"]
 
     # phase 6: the model kernels behind repro_torch.kernels.ops, counted
     k_model = phase_model_kernels(torch, device, card)
     log("phase 6 ok: " + ", ".join(
         f"{e['name']} x{e['launches']} == plain" for e in k_model)
         + f" at {sum(len(e['cases']) for e in k_model)} shapes [{card}]")
+
+    # phase 7: the mamba2-780m model on the card, B8 and B4 counted
+    model = phase_model(torch, device, card)
+    by_name = {e["name"]: e for e in k_model}
+    for name in ("ssd_scan", "rmsnorm"):
+        by_name[name]["launches_by_path"] = {
+            "kernels.ops (phase 6)": by_name[name]["launches"],
+            "mamba2-780m prefill (phase 7c)": model["launches"][name]}
+        by_name[name]["launches"] = model["launches"][name]
+    log("phase 7 ok: mamba2-780m forward and decode on the card, "
+        f"{json.dumps({k: model[k] for k in ('prefill', 'decode')})} "
+        f"[{card}]")
 
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",

@@ -6,12 +6,12 @@ port's objects from plain numpy-valued mappings of the reference's
 objects (their dataclass fields), so both packages can be fed the same
 state without the port importing the reference.  ``to_tensor`` carries
 one reference array (model inputs, weights) into a tensor exactly,
-bfloat16 included.
+bfloat16 included, and ``params_from_reference`` a whole parameter tree.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -96,3 +96,12 @@ def to_tensor(a, device=None) -> torch.Tensor:
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=dev, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def params_from_reference(tree: Mapping[str, Any], device=None) -> Dict[str, Any]:
+    """The port's parameter dict from the reference's ``init_params``
+    tree (nested mappings of JAX or numpy arrays, bfloat16 included):
+    the same keys, every leaf through ``to_tensor`` on ``device``
+    (default: the CUDA card), the stacked layer axis kept."""
+    return {k: params_from_reference(v, device) if isinstance(v, Mapping)
+            else to_tensor(v, device) for k, v in tree.items()}

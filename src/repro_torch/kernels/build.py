@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each of the seven ``csrc/<name>.cu`` sources (B1-B3 of the UFA path, B4-B7
+Each of the eight ``csrc/<name>.cu`` sources (B1-B3 of the UFA path, B4-B8
 of ``kernels.ops``) exposes a plain C entry point and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/repro_torch_kernels/`` at the root of the checkout, then bound
@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("timeline_reduce", "fixed_point_ell", "ingest_hist", "rmsnorm",
-           "grouped_matmul", "decode_attention", "flash_attention")
+           "grouped_matmul", "decode_attention", "flash_attention",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

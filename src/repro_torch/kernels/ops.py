@@ -10,6 +10,8 @@ The port of ``repro/kernels/ops.py``:
       x (E, C, D) @ w (E, D, F)                                -> B7
   rmsnorm(x, scale, eps=1e-6)
       x (..., D), scale (D,)                                   -> B4
+  ssd_scan(x, dt, a, b, c, chunk=128)
+      x (B, S, H, P), dt (B, S, H), a (H,), b/c (B, S, G, N)   -> B8
 
 The reference transposes between the model's layout and its Pallas
 kernels' blocked layouts here; the CUDA kernels read the model's layouts
@@ -18,13 +20,16 @@ keeps its ``.launches`` count).  The reference's ``interpret`` and
 ``block_*`` arguments were TPU tiling and interpreter knobs and are gone:
 each kernel sizes its own tiles.  Tensors on the card launch the kernels;
 tensors on the CPU take their plain PyTorch versions (``kernels.ref``).
-``ssd_scan`` comes with its own port.
+``ssd_scan`` keeps the reference's contracts: b and c in G groups with
+``H % G == 0`` (the kernel indexes group ``h // (H // G)`` rather than
+repeating b and c), and ``S % chunk == 0`` (``ValueError`` otherwise).
 """
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.grouped_matmul import grouped_matmul
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 __all__ = ["decode_attention", "flash_attention", "grouped_matmul",
-           "rmsnorm"]
+           "rmsnorm", "ssd_scan"]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the model kernels B4-B7.
+"""Plain PyTorch versions of the model kernels B4-B8.
 
 Each computes what ``repro.kernels.ops`` computes, the Pallas kernel's
 contract and not only the reference oracle's: float32 arithmetic, output
@@ -13,6 +13,7 @@ the card.
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -85,3 +86,62 @@ def ref_grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Per-expert product: x (E, C, D) @ w (E, D, F) -> (E, C, F), in
     float32, stored in x's dtype."""
     return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor,
+                  init_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-chunk SSD: the intra-chunk + state update computed by one grid
+    step of the Pallas kernel.  x: (B, c, H, P); dt: (B, c, H); a: (H,);
+    b, c: (B, c, H, N) (already head-expanded);
+    init_state: (B, H, P, N).  Returns (y (B,c,H,P), out_state (B,H,P,N))."""
+    L = x.shape[1]
+    x32 = x.float() * dt.float()[..., None]
+    da = dt.float() * a.float()      # (B, c, H)
+    da_h = da.transpose(1, 2)        # (B, H, c)
+    cs = torch.cumsum(da_h, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    tril = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    L_mat = torch.where(tril, torch.exp(diff), 0.0)
+    y = torch.einsum("bihn,bjhn,bhij,bjhp->bihp",
+                     c.float(), b.float(), L_mat, x32)
+    if init_state is not None:
+        state_decay = torch.exp(cs)  # (B,H,c)
+        y = y + torch.einsum("bchn,bhpn,bhc->bchp",
+                             c.float(), init_state.float(), state_decay)
+    decay_states = torch.exp(cs[..., -1:] - cs)
+    new_state = torch.einsum("bchn,bhc,bchp->bhpn",
+                             b.float(), decay_states, x32)
+    if init_state is not None:
+        new_state = new_state + init_state.float() * \
+            torch.exp(cs[..., -1])[..., None, None]
+    return y.to(x.dtype), new_state
+
+
+def ref_ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor,
+                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Pallas kernel's grid, step by step: ``ref_ssd_chunk`` over each
+    chunk of ``chunk`` positions, carrying the float32 state from one to
+    the next.  x: (B, S, H, P); dt: (B, S, H); a: (H,); b, c: (B, S, G, N)
+    with ``H % G == 0`` (group ``h // (H // G)`` serves head h);
+    ``S % chunk == 0``.  Returns y (B, S, H, P) in x's dtype and the final
+    state (B, H, P, N) in float32.  y is computed in float32 and rounded
+    once, as the kernel stores it."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    rep = H // b.shape[2]
+    if rep != 1:
+        b = torch.repeat_interleave(b, rep, dim=2)
+        c = torch.repeat_interleave(c, rep, dim=2)
+    x32 = x.float()
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        y, state = ref_ssd_chunk(x32[:, sl], dt[:, sl], a, b[:, sl],
+                                 c[:, sl], state)
+        ys.append(y)
+    y = torch.cat(ys, dim=1) if ys else x32.new_zeros((B, 0, H, P))
+    return y.to(x.dtype), state

@@ -1,0 +1,103 @@
+"""Mamba-2 SSD chunked scan: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Replaces ``repro/kernels/ssd_scan.py::ssd_scan`` (Pallas ``_ssd_kernel``)
+behind ``repro/kernels/ops.py::ssd_scan``: x (B, S, H, P), dt (B, S, H),
+a (H,), b and c (B, S, G, N) with ``H % G == 0``; y (B, S, H, P) in x's
+dtype and the final state (B, H, P, N) in float32.  Head h reads group
+``h // (H // G)``: the kernel indexes the group instead of expanding b
+and c.  x, b, c and dt are read through their strides (unit stride on
+the last axis), so the model's slices of its conv output need no copy.
+The kernel (``csrc/ssd_scan.cu``: three launches, one call) says what
+bounds it and how its design answers that.  ``ssd_scan`` launches it for
+CUDA tensors and takes ``ref.ref_ssd_scan`` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import backend, build
+from repro_torch.kernels.ref import ref_ssd_scan
+
+MAX_P = 64
+MAX_N = 128
+MAX_CHUNK = 1024
+
+
+def _lib():
+    fn = build.load("ssd_scan").ssd_scan_launch
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 5 + [ll] * 12 + [i] * 9 + [p] * 6
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, dt, a, b, c, chunk):
+    if x.dim() != 4 or dt.dim() != 3 or a.dim() != 1 or b.dim() != 4 \
+            or c.shape != b.shape:
+        raise ValueError(f"ssd_scan: x (B, S, H, P), dt (B, S, H), a (H,), "
+                         f"b and c (B, S, G, N), got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)}")
+    B, S, H, _ = x.shape
+    G = b.shape[2]
+    if dt.shape != (B, S, H) or a.shape != (H,) or b.shape[:2] != (B, S) \
+            or G < 1 or H % G:
+        raise ValueError(f"ssd_scan: shapes do not fit x {tuple(x.shape)}: "
+                         f"dt {tuple(dt.shape)}, a {tuple(a.shape)}, b/c "
+                         f"{tuple(b.shape)} (H % G must be 0)")
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"ssd_scan: S={S} must be a multiple of "
+                         f"chunk={chunk}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor,
+             chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, H, P); dt (B, S, H); a (H,); b/c (B, S, G, N).  Returns
+    (y (B, S, H, P) in x's dtype, final state (B, H, P, N) float32).
+    x, b and c share float32 or bfloat16; dt is float32 or bfloat16; a is
+    float32.  ``S % chunk == 0``.  CUDA tensors launch the kernel (counted
+    in ``ssd_scan.launches``); CPU tensors take the plain version."""
+    _check(x, dt, a, b, c, chunk)
+    if backend.kernel_route("ssd_scan", x, dt, a, b, c) == "cpu":
+        return ref_ssd_scan(x, dt, a, b, c, chunk)
+    x_dt = backend.kernel_dtype("ssd_scan", x, b, c)
+    dt_dt = backend.kernel_dtype("ssd_scan", dt)
+    if a.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: a must be float32, got {a.dtype}")
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if not (P <= MAX_P and N <= MAX_N and chunk <= MAX_CHUNK):
+        raise ValueError(f"ssd_scan: the kernel takes P <= {MAX_P}, N <= "
+                         f"{MAX_N} and chunk <= {MAX_CHUNK}, got P={P}, "
+                         f"N={N}, chunk={chunk}")
+    if any(t.stride(-1) != 1 for t in (x, b, c)) or not a.is_contiguous():
+        raise ValueError("ssd_scan: x, b and c need unit stride on their "
+                         "last axis, a must be contiguous")
+    dev = x.device
+    y = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    if x.numel() == 0 or N == 0:
+        return y.zero_(), state.zero_()
+    yf = y if x.dtype == torch.float32 else torch.empty(
+        (B, S, H, P), dtype=torch.float32, device=dev)
+    cs = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    st = torch.empty((B, S // chunk, H, P, N), dtype=torch.float32,
+                     device=dev)
+    backend.launch("ssd_scan", _lib(), x.data_ptr(), dt.data_ptr(),
+                   a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   *x.stride()[:3], *dt.stride(), *b.stride()[:3],
+                   *c.stride()[:3], B, S, H, G, P, N, chunk, x_dt, dt_dt,
+                   y.data_ptr(), yf.data_ptr(), cs.data_ptr(), st.data_ptr(),
+                   state.data_ptr(), device=dev)
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

@@ -130,7 +130,9 @@ def test_import_boundary_subprocess():
     assert {"repro_torch.core.dependency", "repro_torch.core.static_analysis",
             "repro_torch.graph.planner",
             "repro_torch.kernels.ufa.ingest", "repro_torch.kernels.ops",
-            "repro_torch.kernels.ref"} <= set(mods)
+            "repro_torch.kernels.ref", "repro_torch.kernels.ssd_scan",
+            "repro_torch.models.layers", "repro_torch.models.model",
+            "repro_torch.configs.mamba2_780m"} <= set(mods)
 
 
 def test_import_boundary_source_grep():
