@@ -44,10 +44,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      local and global layers, length 1 and 0 from device tensors) and
      the grouped expert matmul (up and down projections), bf16 and fp32
      (fp32 also at gemma3-4b's window 1024, where the window bites),
-     plus ragged edge cases, and the SSD chunked scan at mamba2-780m's
-     full width (B 2 x S 4,096, H 48, P 64, N 128, chunk 256; fp32 and
-     bf16), hymba-1.5b's SSM heads (H 50, N 16) and edges (G = H, one
-     chunk, strong decay, a near 0, ragged P, N and chunk); checks that
+     plus ragged edge cases (flash attention's bf16 kernel also at d 64
+     and d 32, so that each of its instantiations is held), and the SSD
+     chunked scan at mamba2-780m's full width (B 2 x S 4,096, H 48,
+     P 64, N 128, chunk 256; fp32 and bf16), hymba-1.5b's SSM heads
+     (H 50, N 16) and edges (G = H, one chunk, strong decay, a near 0,
+     ragged P, N and chunk); checks that
      each of the five kernels was launched once per shape, holds every
      output against its plain version on the same inputs (and the fp32
      SSD cases against the model's ``ssd_chunked`` in float64), and
@@ -800,15 +802,7 @@ def model_cases(torch, device):
             lambda x, s: F.rms_norm(x, (x.shape[-1],), s, 1e-6),
             2 * R * D * size + D * size, 4 * R * D, dt, 50)
 
-    # B6: llama3.2-3b prefill (KV 8 repeated to 24 heads), gemma3-4b local
-    for label, (B, S, H, d), causal, window, dt, reps in (
-            ("llama3.2-3b prefill", (2, 4096, 24, 128), True, 0, bf16, 5),
-            ("gemma3-4b local layer", (2, 4096, 8, 256), True, 1024, bf16, 5),
-            ("llama3.2-3b prefill fp32", (1, 1024, 24, 128), True, 0, f32, 5),
-            ("gemma3-4b local layer fp32", (1, 2048, 8, 256), True, 1024,
-             f32, 5),
-            ("edge: ragged S, window", (1, 1000, 4, 128), True, 100, bf16, 5),
-            ("edge: ragged S, not causal", (1, 520, 2, 64), False, 0, f32, 5)):
+    def flash_case(label, B, S, H, d, causal, window, dt, reps):
         q, k, v = (randn(B, S, H, d, dtype=dt) for _ in range(3))
         pos = torch.arange(S, device=device)
         allowed = pos[None, :] <= pos[:, None] if causal else \
@@ -832,6 +826,17 @@ def model_cases(torch, device):
             shift=(lambda e, a=(q, k, v), causal=causal, window=window:
                    (a, {"causal": causal, "window": window + e}))
             if 0 < window < S else None)
+
+    # B6: llama3.2-3b prefill (KV 8 repeated to 24 heads), gemma3-4b local
+    for args in (
+            ("llama3.2-3b prefill", 2, 4096, 24, 128, True, 0, bf16, 5),
+            ("gemma3-4b local layer", 2, 4096, 8, 256, True, 1024, bf16, 5),
+            ("llama3.2-3b prefill fp32", 1, 1024, 24, 128, True, 0, f32, 5),
+            ("gemma3-4b local layer fp32", 1, 2048, 8, 256, True, 1024, f32,
+             5),
+            ("edge: ragged S, window", 1, 1000, 4, 128, True, 100, bf16, 5),
+            ("edge: ragged S, not causal", 1, 520, 2, 64, False, 0, f32, 5)):
+        flash_case(*args)
 
     # B5: llama3.2-3b decode, gemma3-4b local and global decode, edges
     def valid_count(K, length, window):
@@ -931,6 +936,15 @@ def model_cases(torch, device):
             ("edge: ragged P 20, N 10, chunk 48", 1, 96, 3, 1, 20, 10, 48,
              "", "", f32, 20)):
         ssd_case(*args)
+
+    # B6's bf16 kernel at d 64 and d 32, drawn after every earlier case so
+    # that those keep their inputs
+    for args in (
+            ("edge: ragged S, not causal, bf16", 1, 520, 2, 64, False, 0,
+             bf16, 5),
+            ("edge: d 32, causal, window 50, bf16", 1, 300, 3, 32, True, 50,
+             bf16, 5)):
+        flash_case(*args)
     return ops, cases
 
 
@@ -1300,9 +1314,12 @@ def setup(torch):
     log(f"build: {time.perf_counter() - t0:.2f} s for "
         f"{len(build.SOURCES)} kernels ({len(reports)} compiled now)")
     for name, rep in reports.items():
+        entry = ""
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+            if "entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {name} {entry}: {line.strip()}")
     return device, card
 
 

@@ -1,7 +1,8 @@
 // Helpers shared by the model kernels (rmsnorm, grouped_matmul,
 // decode_attention, flash_attention): the dtype codes the C entry points
-// take, float <-> storage conversions, and vector loads that widen a run
-// of elements to float32.
+// take, float <-> storage conversions, vector loads that widen a run of
+// elements to float32, and the PTX wrappers of the tensor-core kernels
+// (mma.sync, ldmatrix, cp.async).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -122,4 +123,70 @@ __device__ __forceinline__ void store_f(bf16* p, const float* v) {
 #pragma unroll
     for (int i = 0; i < N; ++i) p[i] = __float2bfloat16_rn(v[i]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// tensor cores and asynchronous copies (sm_80 and later)
+// ---------------------------------------------------------------------------
+
+// c += a b on the tensor cores: a 16 x 16 bf16 A fragment (row-major), a
+// 16 x 8 bf16 B fragment (column-major), a 16 x 8 float32 accumulator.
+// Thread (group g = lane / 4, t = lane % 4) holds A rows g and g + 8,
+// columns 2t, 2t + 1 (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); B
+// rows 2t, 2t + 1 (b[0]) and 2t + 8, 2t + 9 (b[1]) of column g; C rows g
+// (c[0], c[1]) and g + 8 (c[2], c[3]), columns 2t, 2t + 1.  Each product
+// of two bf16 is exact in float32.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 b16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// addresses of matrix i's rows (16 bytes each); r[i] holds matrix i, lane
+// l its row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// the same, each matrix transposed: lane l holds rows 2 (l % 4) and
+// 2 (l % 4) + 1 of column l / 4
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// 16 bytes global -> shared without passing through registers (L2 only);
+// fill = false writes 16 zero bytes and reads nothing from src (src must
+// still be a valid address)
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(fill ? 16 : 0));
+}
+
+// close the group of copies this thread has issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }

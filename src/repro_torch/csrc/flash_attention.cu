@@ -8,28 +8,61 @@
 //
 //   allowed(qp, kp) = (!causal or kp <= qp) and (window <= 0 or qp - kp < window)
 //
-// out in q's dtype (round to nearest even for bf16).
+// out in q's dtype (round to nearest even for bf16).  The inputs are read
+// through their strides, so the model layout (B, S, H, d) is never
+// transposed.  Key tiles that the causal or window mask covers wholly are
+// not visited, as _flash_kernel skips them (:41-47).
 //
 // What bounds it: operations.  At llama3.2-3b's prefill (B 2, S 4,096,
 // H 24, d 128, causal) the unmasked half of Q K^T and P V is 2.06e11
-// flops against 0.2 GB moved: 0.208 ms at 989 TFLOP/s (bf16).  At
-// gemma3-4b's d = 256 a thread cannot hold a query row and its
-// accumulator in registers.
+// flops against 0.2 GB moved: 0.208 ms at 989 TFLOP/s (bf16).  So the
+// products belong on the tensor cores, and the softmax between them must
+// not go through shared memory.
 //
-// Design: one block of 256 threads per (64-row query tile, head,
-// sequence); the loop over key tiles inside the block replaces the TPU's
-// sequential grid dimension.  The query tile (pre-scaled, float32), a key
-// tile and a value tile sit in shared memory (64 keys a tile for
-// d <= 128, 32 for d = 256; 66-140 KB, so the entry point raises the
-// block's dynamic shared-memory limit).  Per key tile: S = Q K^T with
-// 4 x 4 scores a thread, the online softmax with four threads a row
-// (shuffles within the four), then acc += P V with 4 rows x d/16 columns
-// a thread, so the float32 accumulator is spread over the block and never
-// spills.  Key tiles that the causal or window mask covers wholly are not
-// visited, as _flash_kernel skips them (:41-47); ragged S is masked.
-// Arithmetic is scalar float32 FMA; tensor cores (mma / wgmma) and TMA
-// are later work.  The inputs are read through their strides, so the
-// model layout (B, S, H, d) is never transposed.
+// bf16: FlashAttention-2's layout on mma.sync.  One block of four warps
+// per (64-row query tile, head, sequence), heaviest causal tiles first;
+// each warp owns 16 query rows and walks the key tiles (64 keys for
+// d <= 128, 32 for d = 256).
+//  - K and V tiles arrive by cp.async (16 bytes a thread, zero-filled past
+//    S) into a two-stage ring, so the next tile is in flight while this
+//    one computes.  Rows are padded by 8 bf16 so that ldmatrix is free of
+//    bank conflicts.  The query tile stays in shared memory and is re-read
+//    by ldmatrix at each k-step, which leaves the registers to d = 256's
+//    16 x 256 float32 accumulator (128 a thread).
+//  - S = Q K^T on mma.sync m16n8k16 (bf16 in, float32 accumulate; each
+//    product of two bf16 is exact in float32, as the Pallas kernel's
+//    widening).  The scores are scaled by scale * log2(e) in float32 after
+//    the product (bf16 q cannot be pre-scaled exactly) and the softmax runs
+//    in base 2.  Only warps whose tile crosses the diagonal, the window
+//    edge or S test the mask element by element; masked weights are forced
+//    to 0 (a row masked so far has m = -1e30 and would give exp(0) = 1).
+//  - The online softmax stays in registers: a thread holds rows g and
+//    g + 8 of each C fragment, the row max takes two shuffles inside the
+//    quad, and l sums the float32 P before it is split.
+//  - O += P V with P in registers: two adjacent n8 C fragments of S are
+//    one k16 A fragment of P.  P is fed as two bf16 terms, P_hi = bf16(P)
+//    and P_lo = bf16(P - P_hi), one mma each against V's B fragment
+//    (ldmatrix.trans).  The plain version and the Pallas kernel form P V in
+//    float32; emulated on the CPU (seed 15, random normal bf16 q, k, v),
+//    a single bf16 P changes ~40% of the bf16 outputs and puts thousands
+//    beyond one rounding step (llama shape: 41%, 2,380; gemma3-4b window:
+//    40%, 5,050; S 1,000 window 100: 38%, 16,734), fp16 still 10%; the two
+//    terms change 0.21-0.25% and none beyond the step.  The second term
+//    costs half again the tensor-core work (3.1e11 flops at llama's shape).
+//  - The epilogue divides by max(l, 1e-30), rounds to bf16 and stages the
+//    warp's 16 rows through its own rows of the query tile for 16-byte
+//    stores.
+//
+// float32: scalar IEEE float32 FMAs.  Its tolerance (the reference's
+// rtol = atol = 2e-5) rules out both bf16 and TF32 products.  One block
+// of 256 threads per (64-row query tile, head, sequence); Q (pre-scaled),
+// K and V tiles widened to float32 in shared memory; per key tile
+// S = Q K^T with 4 x 4 scores a thread, the online softmax with four
+// threads a row, then acc += P V with 4 rows x d/16 columns a thread.
+//
+// Next (a later B6 step): wgmma on a warpgroup with K and V brought by
+// TMA into an mbarrier ring, P fed to wgmma from registers, a producer
+// warp and persistent blocks, to close the gap to the tensor cores' rate.
 
 #include "common.cuh"
 
@@ -200,6 +233,266 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TW = 4;        // warps a block, 16 query rows each
+constexpr int TQ = 16 * TW;  // query rows a block
+constexpr int TB = 32 * TW;  // threads a block
+
+template <int DH, int BKT>
+struct SmemT {
+  static constexpr int P = DH + 8;  // row pitch: +16 bytes, so the eight
+                                    // rows of an ldmatrix hit distinct banks
+  bf16 q[TQ][P];
+  bf16 k[2][BKT][P];
+  bf16 v[2][BKT][P];
+};
+
+// rows [r0, r0 + R) of a (B, S, H, d) bf16 tensor at (b, h) into dst[R][P]
+// by cp.async (not yet committed); rows past S are zero-filled
+template <int DH, int R, int P>
+__device__ __forceinline__ void copy_tile(bf16 (*dst)[P], const bf16* src,
+                                          long long ss, int r0, int S) {
+  constexpr int CH = DH / 8;  // 16-byte chunks a row
+  static_assert(R * CH % TB == 0, "tile must split evenly over the block");
+#pragma unroll
+  for (int i = 0; i < R * CH / TB; ++i) {
+    const int idx = threadIdx.x + i * TB;
+    const int r = idx / CH, c = (idx % CH) * 8;
+    const bool in = r0 + r < S;
+    cp_async_16(&dst[r][c], src + (long long)(in ? r0 + r : 0) * ss + c, in);
+  }
+}
+
+// float32 pair -> two bf16 (low half = x), rounded to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int DH, int BKT>
+__global__ void __launch_bounds__(TB)
+flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  const Strides st, int S, int causal, int window,
+                  float scale_log2) {
+  using Sm = SmemT<DH, BKT>;
+  constexpr int P = Sm::P;
+  constexpr int NS = BKT / 8;  // n8 fragments of S a warp
+  constexpr int NO = DH / 8;   // n8 fragments of O a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+  // heaviest causal tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const bf16* qp = q + b * st.v[0] + h * st.v[2];
+  const bf16* kp = k + b * st.v[3] + h * st.v[5];
+  const bf16* vp = v + b * st.v[6] + h * st.v[8];
+  bf16* op = o + b * st.v[9] + h * st.v[11];
+
+  // the key tiles that hold at least one allowed key for this query tile
+  const int q_last = min(q0 + TQ, S) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt0 = (k_begin / BKT) * BKT;
+  const int n_tiles = (k_end - kt0 + BKT - 1) / BKT;
+
+  copy_tile<DH, TQ, P>(sm.q, qp, st.v[1], q0, S);
+  copy_tile<DH, BKT, P>(sm.k[0], kp, st.v[4], kt0, S);
+  copy_tile<DH, BKT, P>(sm.v[0], vp, st.v[7], kt0, S);
+  cp_async_commit();
+
+  // this warp's rows: wq0 .. wq0 + 15; this thread's rows r_lo, r_lo + 8
+  const int wq0 = q0 + warp * 16;
+  const int r_lo = wq0 + grp, r_hi = r_lo + 8;
+  // ldmatrix row addresses: Q's A fragment (rows lane % 16, column block
+  // lane / 16), K's B fragments (keys lane % 8 + 8 (lane / 16), column
+  // block (lane / 8) % 2), V's transposed B fragments (keys lane % 16,
+  // column block lane / 16)
+  const bf16* q_frag = &sm.q[warp * 16 + lane % 16][(lane / 16) * 8];
+  const int k_row = lane % 8 + (lane / 16) * 8, k_col = ((lane / 8) % 2) * 8;
+  const int v_row = lane % 16, v_col = (lane / 16) * 8;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // running max (base-2 units) and this thread's share of the row sums
+  float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kt0 + t * BKT, stage = t & 1;
+    if (t + 1 < n_tiles) {
+      copy_tile<DH, BKT, P>(sm.k[stage ^ 1], kp, st.v[4], k0 + BKT, S);
+      copy_tile<DH, BKT, P>(sm.v[stage ^ 1], vp, st.v[7], k0 + BKT, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // every group but the newest: tile t has landed
+    __syncthreads();
+
+    // a tile that masks all of this warp's rows changes nothing (p = 0,
+    // alpha = 1); one that masks some is tested element by element
+    const bool none = wq0 >= S || (causal && k0 > wq0 + 15) ||
+                      (window > 0 && wq0 - (k0 + BKT - 1) >= window);
+    const bool edge = k0 + BKT > S || wq0 + 16 > S ||
+                      (causal && k0 + BKT - 1 > wq0) ||
+                      (window > 0 && wq0 + 15 - k0 >= window);
+    if (!none) {
+      // S = Q K^T
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, q_frag + kk * 16);
+#pragma unroll
+        for (int jj = 0; jj < NS / 2; ++jj) {
+          uint32_t bb[4];
+          ldmatrix_x4(bb, &sm.k[stage][jj * 16 + k_row][kk * 16 + k_col]);
+          mma_bf16(s[2 * jj], a, bb);
+          mma_bf16(s[2 * jj + 1], a, bb + 2);
+        }
+      }
+
+      // scores in base-2 units; masked ones at -1e30, their weights 0
+      uint32_t masked = 0;  // bit 4 j + e: s[j][e] is masked
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] *= scale_log2;
+          if (edge && !allowed(e < 2 ? r_lo : r_hi,
+                               k0 + j * 8 + tig * 2 + (e & 1), S, causal,
+                               window)) {
+            s[j][e] = NEG_INF;
+            masked |= 1u << (4 * j + e);
+          }
+        }
+      float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+        mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      const float al_lo = exp2f(m_lo - mn_lo), al_hi = exp2f(m_hi - mn_hi);
+      m_lo = mn_lo;
+      m_hi = mn_hi;
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = (masked >> (4 * j + e)) & 1u
+                              ? 0.f
+                              : exp2f(s[j][e] - (e < 2 ? mn_lo : mn_hi));
+          s[j][e] = p;
+          if (e < 2) sum_lo += p; else sum_hi += p;
+        }
+      l_lo = l_lo * al_lo + sum_lo;
+      l_hi = l_hi * al_hi + sum_hi;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        acc[j][0] *= al_lo;
+        acc[j][1] *= al_lo;
+        acc[j][2] *= al_hi;
+        acc[j][3] *= al_hi;
+      }
+
+      // O += P V, P as bf16 P_hi + P_lo straight from the S fragments
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        // A fragment: rows g (keys 2t, 2t + 1, then 2t + 8, 2t + 9) from
+        // s[2 kk][0..1] and s[2 kk + 1][0..1], rows g + 8 from [2..3]
+        const float x[8] = {s[2 * kk][0],     s[2 * kk][1],
+                            s[2 * kk][2],     s[2 * kk][3],
+                            s[2 * kk + 1][0], s[2 * kk + 1][1],
+                            s[2 * kk + 1][2], s[2 * kk + 1][3]};
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float hf[2];
+          hi[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+          bf16x2_to_f(hi[i], hf);  // exact: float(P_hi)
+          lo[i] = pack_bf16(x[2 * i] - hf[0], x[2 * i + 1] - hf[1]);
+        }
+#pragma unroll
+        for (int dj = 0; dj < NO / 2; ++dj) {
+          uint32_t bb[4];
+          ldmatrix_x4_trans(bb,
+                            &sm.v[stage][kk * 16 + v_row][dj * 16 + v_col]);
+          mma_bf16(acc[2 * dj], hi, bb);
+          mma_bf16(acc[2 * dj], lo, bb);
+          mma_bf16(acc[2 * dj + 1], hi, bb + 2);
+          mma_bf16(acc[2 * dj + 1], lo, bb + 2);
+        }
+      }
+    }
+    __syncthreads();  // the ring stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+
+  // out = acc / max(l, 1e-30), staged through this warp's own Q rows
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float d_lo = fmaxf(l_lo, 1e-30f), d_hi = fmaxf(l_hi, 1e-30f);
+  bf16 (*stage_o)[P] = sm.q + warp * 16;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int c = j * 8 + tig * 2;
+    *reinterpret_cast<uint32_t*>(&stage_o[grp][c]) =
+        pack_bf16(acc[j][0] / d_lo, acc[j][1] / d_lo);
+    *reinterpret_cast<uint32_t*>(&stage_o[grp + 8][c]) =
+        pack_bf16(acc[j][2] / d_hi, acc[j][3] / d_hi);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * (DH / 8) / 32; ++i) {
+    const int idx = lane + 32 * i;
+    const int r = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
+    if (wq0 + r < S)
+      *reinterpret_cast<uint4*>(op + (long long)(wq0 + r) * st.v[10] + c) =
+          *reinterpret_cast<const uint4*>(&stage_o[r][c]);
+  }
+}
+
+template <int DH, int BKT>
+static cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                               void* o, const Strides& strides, int B, int S,
+                               int H, int causal, int window, float scale,
+                               cudaStream_t st) {
+  const size_t bytes = sizeof(SmemT<DH, BKT>);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<DH, BKT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + TQ - 1) / TQ, H, B);
+  flash_bf16_kernel<DH, BKT><<<grid, TB, bytes, st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, strides, S,
+      causal, window, (float)(scale * 1.4426950408889634));
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
 template <typename T, int DH, int BKT>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           void* o, const Strides& strides, int B, int S,
@@ -241,12 +534,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       case 256: FA_CASE(float, 256, 32);
     }
   } else if (dt == DT_BF16) {
+#define FA_BF16(D, BKT)                                                     \
+  return (int)launch_bf16<D, BKT>(q, k, v, o, sv, B, S, H, causal, window,   \
+                                  scale, st)
     switch (dh) {
-      case 32: FA_CASE(bf16, 32, 64);
-      case 64: FA_CASE(bf16, 64, 64);
-      case 128: FA_CASE(bf16, 128, 64);
-      case 256: FA_CASE(bf16, 256, 32);
+      case 32: FA_BF16(32, 64);
+      case 64: FA_BF16(64, 64);
+      case 128: FA_BF16(128, 64);
+      case 256: FA_BF16(256, 32);
     }
+#undef FA_BF16
   }
 #undef FA_CASE
   return (int)cudaErrorInvalidValue;

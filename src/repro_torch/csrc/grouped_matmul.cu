@@ -39,15 +39,6 @@
 #define BK 32
 #define PITCH (BK + 8)  // 40 bf16 = 20 words: conflict-free fragment reads
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // 8 consecutive bf16 from row-major src at (r, c) of an (R, Cn) matrix,
 // zero beyond the edges; vec: rows are 16-byte aligned and Cn % 8 == 0
 __device__ __forceinline__ uint4 load8(const bf16* src, int r, int c, int R,

@@ -103,6 +103,8 @@ def test_rmsnorm_leading_axes_mixed_scale_and_eps():
     (256, 2, 64, 64, False, F32),
     (128, 2, 64, 0, True, BF16),
     (256, 2, 128, 100, True, BF16),
+    (128, 2, 64, 0, False, BF16),
+    (128, 3, 32, 50, True, BF16),
 ])
 def test_flash_attention_matches_reference(S, H, d, window, causal, dtype):
     B = 2
