@@ -773,12 +773,13 @@ def model_cases(torch, device):
     cases = []
 
     def add(op, label, args, kwargs, plain, library, bytes_moved, flops,
-            dtype, reps, check=None, shift=None, truth=None, bf16_flops=0):
+            dtype, reps, check=None, shift=None, truth=None, bf16_flops=0,
+            route=None):
         cases.append(dict(op=op, label=label, args=args, kwargs=kwargs,
                           plain=plain, library=library,
                           bytes=bytes_moved, flops=flops, dtype=dtype,
                           reps=reps, check=check, shift=shift, truth=truth,
-                          bf16_flops=bf16_flops))
+                          bf16_flops=bf16_flops, route=route))
 
     # B4: llama3.2-3b hidden norm (B 4 x S 4,096 tokens), qwen3 qk-norm;
     # mamba2-780m's norms as phase 7c gives them: ln1 and final_norm at
@@ -881,17 +882,23 @@ def model_cases(torch, device):
             if 0 < window < length else None)
 
     # B7: phi3.5-moe experts, 16 x 640 rows (4,096 tokens x top-2 x
-    # capacity 1.25 / 16), d_model 4,096, d_ff 6,400
-    for label, (E, C, D, Fo), dt, reps in (
-            ("phi3.5-moe expert up", (16, 640, 4096, 6400), bf16, 5),
-            ("phi3.5-moe expert down", (16, 640, 6400, 4096), bf16, 5),
-            ("phi3.5-moe expert up fp32", (16, 640, 4096, 6400), f32, 2),
-            ("edge: ragged C, D, F", (3, 50, 100, 70), bf16, 20),
-            ("edge: ragged C, D, F fp32", (3, 50, 100, 70), f32, 20)):
+    # capacity 1.25 / 16), d_model 4,096, d_ff 6,400; each case names the
+    # route (kernel) its dtype, shape and alignment must take
+    def gmm_case(label, E, C, D, Fo, dt, reps, route):
         x, w = randn(E, C, D, dtype=dt), randn(E, D, Fo, dtype=dt)
         add("grouped_matmul", label, (x, w), {}, ref.ref_grouped_matmul,
             torch.bmm, (E * C * D + E * D * Fo + E * C * Fo)
-            * x.element_size(), 2 * E * C * D * Fo, dt, reps)
+            * x.element_size(), 2 * E * C * D * Fo, dt, reps, route=route)
+
+    for args in (
+            ("phi3.5-moe expert up", 16, 640, 4096, 6400, bf16, 5, "wgmma"),
+            ("phi3.5-moe expert down", 16, 640, 6400, 4096, bf16, 5,
+             "wgmma"),
+            ("phi3.5-moe expert up fp32", 16, 640, 4096, 6400, f32, 2,
+             "fma"),
+            ("edge: ragged C, D, F", 3, 50, 100, 70, bf16, 20, "mma_sync"),
+            ("edge: ragged C, D, F fp32", 3, 50, 100, 70, f32, 20, "fma")):
+        gmm_case(*args)
 
     # B8: mamba2-780m's SSD at full width (d_model 1,536, expand 2: H 48,
     # P 64, N 128, one group, chunk 256) over B 2 x S 4,096, fp32 (what the
@@ -945,6 +952,19 @@ def model_cases(torch, device):
             ("edge: d 32, causal, window 50, bf16", 1, 300, 3, 32, True, 50,
              bf16, 5)):
         flash_case(*args)
+
+    # B7's wgmma route on many small experts and on ragged tiles, drawn
+    # last as well.  kimi-k2 (src/repro/configs/kimi_k2_1t_a32b.py): d_model
+    # 7,168, expert d_ff 2,048, C = moe_capacity at 4,096 tokens, top-8,
+    # factor 1.25 (ceil(106.7) rounded up to 8); 64 of its 384 experts keep
+    # w at 1.88 GB and the plain version's float32 copy at 3.8 GB.  The edge
+    # leaves C, D and F ragged past the 128-row, 64-deep and 256-wide tiles.
+    for args in (
+            ("kimi-k2 expert up (64 of 384 experts)", 64, 112, 7168, 2048,
+             bf16, 5, "wgmma"),
+            ("edge: ragged C, D, F on the wgmma route", 2, 200, 1000, 520,
+             bf16, 20, "wgmma")):
+        gmm_case(*args)
     return ops, cases
 
 
@@ -962,6 +982,7 @@ def phase_model_kernels(torch, device, card: str) -> list:
     counts zeroed just before and read just after; then each output held
     against the plain version on the same inputs, and the kernel, the
     plain version and the library call timed."""
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_route
     ops, cases = model_cases(torch, device)
     names = tuple(name for name, _, _ in MODEL_KERNELS)
     for name in names:
@@ -1055,6 +1076,10 @@ def phase_model_kernels(torch, device, card: str) -> list:
                "float64_rel_err": truth_err,
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if c["route"] is not None:
+            row["route"] = grouped_matmul_route(*c["args"])
+            check(row["route"] == c["route"], f"{where}: took the "
+                  f"{row['route']} route, want {c['route']}")
         fn = getattr(ops, c["op"])
         # inputs smaller than three L2s are cycled through three copies,
         # so that each timed call reads them from device memory

@@ -1,0 +1,224 @@
+// PTX wrappers of Hopper's asynchronous machinery (sm_90a): mbarriers,
+// TMA tensor loads, wgmma with its shared-memory descriptors, and
+// setmaxnreg; and the host-side encoding of a TMA tensor map.  Used by
+// the grouped matmul's wgmma kernel; written so that later tensor-core
+// kernels (flash attention, the SSD scan) can take them as they are.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (header only: no -lcuda)
+
+#include "common.cuh"
+
+// ---------------------------------------------------------------------------
+// mbarriers (shared-memory barriers that count arrivals and TMA bytes)
+// ---------------------------------------------------------------------------
+
+// one thread: the barrier completes a phase after `count` arrivals (and
+// whatever transaction bytes the phase was told to expect)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// after the inits, before any thread or TMA uses the barriers
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once and add `bytes` to the transaction bytes the current phase
+// waits for (the producer's arrival before its TMA loads)
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed: a fresh barrier
+// is in phase 0, so waiting on parity 1 passes at once and waiting on 0
+// blocks until the first phase completes
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+// one thread: copy the box of `map` at element coordinates (c0, c1, c2),
+// innermost first, into shared memory at dst; the bytes complete on bar.
+// Out-of-range elements land as zeros and still count as bytes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (a warpgroup of 128 threads, operands in shared memory)
+// ---------------------------------------------------------------------------
+
+// before the first wgmma, and after any other instruction touched its
+// accumulator registers
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// close the group of wgmmas this warpgroup has issued
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin a register after a wgmma_wait: the compiler may not move a read of
+// an accumulator above the wait that makes it valid
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// descriptor of a SWIZZLE_128B operand tile in shared memory (what TMA
+// writes under CU_TENSOR_MAP_SWIZZLE_128B; the tile 1024-byte aligned).
+// Fields: start address >> 4 (bits 0-13), leading byte offset >> 4
+// (16-29), stride byte offset >> 4 (32-45), layout 1 = 128-byte swizzle
+// (62-63).  K-major (K contiguous, 64 bf16 = one 128-byte row): lbo is
+// unused, sbo the step between groups of 8 rows (1024).  MN-major (MN
+// contiguous in 128-byte rows of 64 elements, one row per k): lbo the
+// step between 64-wide MN blocks, sbo the step between groups of 8 k.
+// Adding 2 (32 bytes) moves a K-major tile on by 16 k inside its rows.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile,
+                                                     uint32_t lbo,
+                                                     uint32_t sbo) {
+  const uint64_t a = smem_u32(tile);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+#define WGMMA_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WGMMA_D16(i) \
+  WGMMA_D4(i), WGMMA_D4(i + 4), WGMMA_D4(i + 8), WGMMA_D4(i + 12)
+
+// d (64 x 256, float32) += A (64 x 16, bf16) B (16 x 256, bf16): A
+// K-major, B K-major (TRANS_B 0) or N-major (TRANS_B 1), both by
+// descriptor.  Thread l of warp w in the warpgroup holds d[4j + h]: row
+// 16 w + l / 4 (+ 8 for h >= 2), column 8 j + 2 (l % 4) + h % 2.  Each
+// product of two bf16 is exact in float32.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, %128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : WGMMA_D16(0), WGMMA_D16(16), WGMMA_D16(32), WGMMA_D16(48),
+        WGMMA_D16(64), WGMMA_D16(80), WGMMA_D16(96), WGMMA_D16(112)
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+#undef WGMMA_D16
+#undef WGMMA_D4
+
+// ---------------------------------------------------------------------------
+// warp specialisation
+// ---------------------------------------------------------------------------
+
+// a whole warpgroup lowers (producer) or raises (consumer) its register
+// budget; the counts are multiples of 8 in [24, 256]
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// host: TMA tensor maps
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*TensorMapEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled (its CUDA 12.0 signature), found
+// through the runtime (CUDA 12.5 or later) so that the library needs no
+// -lcuda; null if the driver does not have it
+static TensorMapEncodeTiled tensor_map_encoder() {
+  static TensorMapEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TensorMapEncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 3-D bf16 tensor, contiguous, dims (n0, n1, n2) innermost first, read
+// in boxes of (b0, b1, 1) with the 128-byte swizzle (b0 * 2 <= 128) and
+// zeros beyond the edges.  n0 % 8 == 0 and base 16-byte aligned, as TMA
+// asks.  Returns 0 or a cudaError_t.
+static int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0,
+                          uint64_t n1, uint64_t n2, uint32_t b0,
+                          uint32_t b1) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {n0, n1, n2};
+  const cuuint64_t strides[2] = {n0 * 2, n0 * n1 * 2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}

@@ -1,13 +1,24 @@
-"""Grouped (per-expert) matmul: the CUDA kernel's wrapper and its plain
+"""Grouped (per-expert) matmul: the CUDA kernels' wrapper and its plain
 PyTorch version.
 
 Replaces ``repro/kernels/grouped_matmul.py::grouped_matmul`` (Pallas
 ``_gmm_kernel``): ``x (E, C, D) @ w (E, D, F) -> (E, C, F)`` with a
-float32 accumulator over D, stored in x's dtype.  The kernel
-(``csrc/grouped_matmul.cu``: tensor-core ``mma.sync`` for bfloat16, IEEE
-float32 FMAs for float32) says what bounds it and how its design answers
-that; it masks ragged C, D and F itself.  ``grouped_matmul`` launches it
-for CUDA tensors and takes ``ref.ref_grouped_matmul`` for CPU tensors.
+float32 accumulator over D, stored in x's dtype.  ``csrc/grouped_matmul.cu``
+holds three kernels, one per route, and says what bounds each:
+
+- ``"wgmma"``: bfloat16 with D and F multiples of 8 (D > 0) and x and w
+  16-byte aligned.  Three warpgroups a block: a producer thread keeps
+  TMA loads of x and w tiles in a four-stage ``mbarrier`` ring, and two
+  consumer warpgroups run ``wgmma`` on a 128 x 256 output tile.  w is
+  read in place as wgmma's N-major operand.
+- ``"mma_sync"``: every other bfloat16 input (a ragged D or F, a view off
+  16-byte alignment), on ``mma.sync`` with element-wise masked loads.
+- ``"fma"``: float32, on IEEE float32 FMAs (no TF32).
+
+``grouped_matmul_route`` picks the route from dtype, shape and alignment
+alone; nothing falls back when a build or launch fails.  ``grouped_matmul``
+launches the route's kernel for CUDA tensors and takes
+``ref.ref_grouped_matmul`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,23 +30,44 @@ import torch
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_grouped_matmul
 
+# route codes of the C entry point (csrc/grouped_matmul.cu)
+ROUTES = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+
 
 def _lib():
     fn = build.load("grouped_matmul").grouped_matmul_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def grouped_matmul_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel a CUDA call on x (E, C, D) and w (E, D, F) launches:
+    ``"wgmma"`` for bfloat16 whose D and F are multiples of 8 (D > 0) and
+    whose x and w start 16-byte aligned (TMA's stride and address rules),
+    ``"mma_sync"`` for any other bfloat16, ``"fma"`` for float32.  Reads
+    only dtype, shape and address, so it takes ``meta`` tensors too."""
+    if x.dtype == torch.float32:
+        return "fma"
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"grouped_matmul: no kernel for {x.dtype}")
+    D, F = x.shape[2], w.shape[2]
+    if (D > 0 and D % 8 == 0 and F % 8 == 0 and x.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "mma_sync"
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D), w (E, D, F), contiguous, both float32 or both
-    bfloat16.  CUDA tensors launch the kernel (counted in
+    bfloat16.  CUDA tensors launch the kernel of
+    ``grouped_matmul_route(x, w)`` (counted in
     ``grouped_matmul.launches``); CPU tensors take the plain version."""
     if backend.kernel_route("grouped_matmul", x, w) == "cpu":
         return ref_grouped_matmul(x, w)
-    dt = backend.kernel_dtype("grouped_matmul", x, w)
+    backend.kernel_dtype("grouped_matmul", x, w)
     if x.dim() != 3 or w.dim() != 3 or w.shape[:2] != (x.shape[0],
                                                         x.shape[2]):
         raise ValueError(f"grouped_matmul: x (E, C, D) and w (E, D, F), got "
@@ -49,9 +81,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    vec = int(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    route = ROUTES[grouped_matmul_route(x, w)]
     backend.launch("grouped_matmul", _lib(), x.data_ptr(), w.data_ptr(),
-                   out.data_ptr(), E, C, D, F, dt, vec, device=x.device)
+                   out.data_ptr(), E, C, D, F, route, device=x.device)
     grouped_matmul.launches += 1
     return out
 

@@ -20,6 +20,8 @@ from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref as ref_oracle  # noqa: E402
 from repro_torch.convert import to_tensor  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.grouped_matmul import (  # noqa: E402
+    grouped_matmul_route)
 
 F32, BF16 = jnp.float32, jnp.bfloat16
 TOL = {"flash": (2e-5, 2e-2), "decode": (3e-5, 2e-2), "gmm": (2e-3, 3e-2),
@@ -200,6 +202,10 @@ def test_decode_attention_edge_lengths(length, as_tensor):
     (2, 128, 256, 128, F32),
     (4, 256, 512, 256, F32),
     (2, 128, 256, 128, BF16),
+    # kimi-k2's experts cut down: C ragged against the wgmma route's
+    # 128-row tile, and dividing the reference's own blocks
+    (4, 56, 192, 64, F32),
+    (4, 56, 192, 64, BF16),
 ])
 def test_grouped_matmul_matches_reference(E, C, D, F, dtype):
     x, xt = _normal(0, (E, C, D), dtype)
@@ -218,6 +224,39 @@ def test_grouped_matmul_ragged(dtype):
     w, wt = _normal(6, (3, 100, 70), dtype)
     _close(ops.grouped_matmul(xt, wt), ref_oracle.ref_grouped_matmul(x, w),
            "gmm", dtype)
+
+
+def _meta_view(shape, dtype, offset):
+    """A contiguous ``meta`` tensor of ``shape`` that starts ``offset``
+    elements into its storage (nothing is allocated or launched)."""
+    n = int(np.prod(shape))
+    return torch.empty(n + offset, dtype=dtype,
+                       device="meta")[offset:].view(shape)
+
+
+@pytest.mark.parametrize("E,C,D,F,dtype,x_off,w_off,route", [
+    # phi3.5-moe expert up and down, kimi-k2 expert up (64 of 384
+    # experts), and the ragged C, D, F edge: chip_smoke's wgmma cases
+    (16, 640, 4096, 6400, torch.bfloat16, 0, 0, "wgmma"),
+    (16, 640, 6400, 4096, torch.bfloat16, 0, 0, "wgmma"),
+    (64, 112, 7168, 2048, torch.bfloat16, 0, 0, "wgmma"),
+    (2, 200, 1000, 520, torch.bfloat16, 0, 0, "wgmma"),
+    # D and F off multiples of 8, D = 0, or a view 2 bytes off alignment
+    (3, 50, 100, 70, torch.bfloat16, 0, 0, "mma_sync"),
+    (2, 64, 64, 260, torch.bfloat16, 0, 0, "mma_sync"),
+    (2, 64, 0, 64, torch.bfloat16, 0, 0, "mma_sync"),
+    (2, 64, 64, 64, torch.bfloat16, 1, 0, "mma_sync"),
+    (2, 64, 64, 64, torch.bfloat16, 0, 1, "mma_sync"),
+    (2, 64, 64, 64, torch.bfloat16, 8, 8, "wgmma"),
+    # float32 keeps the IEEE-FMA kernel whatever its shape
+    (16, 640, 4096, 6400, torch.float32, 0, 0, "fma"),
+    (3, 50, 100, 70, torch.float32, 0, 0, "fma"),
+])
+def test_grouped_matmul_route(E, C, D, F, dtype, x_off, w_off, route):
+    x = _meta_view((E, C, D), dtype, x_off)
+    w = _meta_view((E, D, F), dtype, w_off)
+    assert x.is_contiguous() and w.is_contiguous()
+    assert grouped_matmul_route(x, w) == route
 
 
 # ---------------------------------------------------------------------------
