@@ -41,7 +41,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      phi3.5-moe: rmsnorm (hidden norm and qk-norm, and mamba2-780m's
      norms at its prefill and decode shapes), flash attention
      (causal prefill, sliding window), decode attention (GQA decode,
-     local and global layers, length 1 and 0 from device tensors) and
+     local and global layers, length 1 and 0 from device tensors, and
+     command-r-plus-104b's group of 12, hymba-1.5b's 5 and
+     musicgen-large's 1; each case checked to take the route its dtype
+     asks for, with its split count recorded) and
      the grouped expert matmul (up and down projections), bf16 and fp32
      (fp32 also at gemma3-4b's window 1024, where the window bites),
      plus ragged edge cases (flash attention's bf16 kernel also at d 64
@@ -844,19 +847,8 @@ def model_cases(torch, device):
         lo = max(0, length - window) if window > 0 else 0
         return max(0, min(length, K) - lo)
 
-    for label, (B, H, KV, d, K), length, window, dt in (
-            ("llama3.2-3b decode", (8, 24, 8, 128, 8192), 6000, 0, bf16),
-            ("gemma3-4b local decode", (8, 8, 4, 256, 8192), 8192, 1024, bf16),
-            ("gemma3-4b global decode", (8, 8, 4, 256, 8192), 8192, 0, bf16),
-            ("llama3.2-3b decode, length 1 (device int32)",
-             (8, 24, 8, 128, 8192), 1, 0, bf16),
-            ("llama3.2-3b decode, length 0 (device int32)",
-             (8, 24, 8, 128, 8192), 0, 0, bf16),
-            ("llama3.2-3b decode fp32", (8, 24, 8, 128, 8192), 6000, 0, f32),
-            ("gemma3-4b local decode fp32", (8, 8, 4, 256, 8192), 8192, 1024,
-             f32),
-            ("edge: ragged cache, window past the start",
-             (2, 8, 2, 64, 1000), 777, 900, f32)):
+    def decode_case(label, shape, length, window, dt):
+        B, H, KV, d, K = shape
         q = randn(B, H, d, dtype=dt)
         kc, vc = randn(B, K, KV, d, dtype=dt), randn(B, K, KV, d, dtype=dt)
         n_valid = valid_count(K, length, window)
@@ -879,7 +871,23 @@ def model_cases(torch, device):
             check=(lambda out: not bool(out.any())) if length == 0 else None,
             shift=(lambda e, a=(q, kc, vc, arg), window=window:
                    ((*a, window + e), {}))
-            if 0 < window < length else None)
+            if 0 < window < length else None,
+            route="mma" if dt == bf16 else "fma")
+
+    for args in (
+            ("llama3.2-3b decode", (8, 24, 8, 128, 8192), 6000, 0, bf16),
+            ("gemma3-4b local decode", (8, 8, 4, 256, 8192), 8192, 1024, bf16),
+            ("gemma3-4b global decode", (8, 8, 4, 256, 8192), 8192, 0, bf16),
+            ("llama3.2-3b decode, length 1 (device int32)",
+             (8, 24, 8, 128, 8192), 1, 0, bf16),
+            ("llama3.2-3b decode, length 0 (device int32)",
+             (8, 24, 8, 128, 8192), 0, 0, bf16),
+            ("llama3.2-3b decode fp32", (8, 24, 8, 128, 8192), 6000, 0, f32),
+            ("gemma3-4b local decode fp32", (8, 8, 4, 256, 8192), 8192, 1024,
+             f32),
+            ("edge: ragged cache, window past the start",
+             (2, 8, 2, 64, 1000), 777, 900, f32)):
+        decode_case(*args)
 
     # B7: phi3.5-moe experts, 16 x 640 rows (4,096 tokens x top-2 x
     # capacity 1.25 / 16), d_model 4,096, d_ff 6,400; each case names the
@@ -965,6 +973,22 @@ def model_cases(torch, device):
             ("edge: ragged C, D, F on the wgmma route", 2, 200, 1000, 520,
              bf16, 20, "wgmma")):
         gmm_case(*args)
+
+    # B5 at more groups, drawn last too: command-r-plus-104b (96 heads
+    # over 8 KV heads: group 12, above the float32 kernel's 8 heads a
+    # block), hymba-1.5b (25 over 5, d 64), musicgen-large (32 over 32,
+    # d 64), and the ragged edge in bf16 with a window that starts and
+    # ends inside a 64-position tile
+    for args in (
+            ("command-r-plus-104b decode", (8, 96, 8, 128, 8192), 6000, 0,
+             bf16),
+            ("command-r-plus-104b decode fp32", (8, 96, 8, 128, 8192), 6000,
+             0, f32),
+            ("hymba-1.5b decode", (8, 25, 5, 64, 8192), 8192, 0, bf16),
+            ("musicgen-large decode", (8, 32, 32, 64, 4096), 3000, 0, bf16),
+            ("edge: ragged cache, window inside tiles, bf16",
+             (2, 8, 2, 64, 1000), 777, 100, bf16)):
+        decode_case(*args)
     return ops, cases
 
 
@@ -982,7 +1006,12 @@ def phase_model_kernels(torch, device, card: str) -> list:
     counts zeroed just before and read just after; then each output held
     against the plain version on the same inputs, and the kernel, the
     plain version and the library call timed."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_nsplit, decode_attention_route)
     from repro_torch.kernels.grouped_matmul import grouped_matmul_route
+    # the kernel each op's case must take, by op (cases name it)
+    route_of = {"grouped_matmul": grouped_matmul_route,
+                "decode_attention": decode_attention_route}
     ops, cases = model_cases(torch, device)
     names = tuple(name for name, _, _ in MODEL_KERNELS)
     for name in names:
@@ -1077,9 +1106,11 @@ def phase_model_kernels(torch, device, card: str) -> list:
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         if c["route"] is not None:
-            row["route"] = grouped_matmul_route(*c["args"])
+            row["route"] = route_of[c["op"]](*c["args"])
             check(row["route"] == c["route"], f"{where}: took the "
                   f"{row['route']} route, want {c['route']}")
+        if c["op"] == "decode_attention":
+            row["nsplit"] = decode_attention_nsplit(*c["args"][:2])
         fn = getattr(ops, c["op"])
         # inputs smaller than three L2s are cycled through three copies,
         # so that each timed call reads them from device memory
@@ -1112,7 +1143,8 @@ def phase_model_kernels(torch, device, card: str) -> list:
             f"abs err {err:.3g} (limit {row['tol']}, {used:.3f} of it used, "
             f"{differs} of outputs differ, window -1/+1 over the limit "
             f"in {off_by_one}; library vs plain {lib_err}; vs float64 "
-            f"{truth_err}) [{card}]")
+            f"{truth_err}; route {row.get('route')}, nsplit "
+            f"{row.get('nsplit')}) [{card}]")
         per_case.append((c["op"], row))
         del want, w, sets, outs_c, wants_c
 

@@ -2,7 +2,7 @@
 // decode_attention, flash_attention): the dtype codes the C entry points
 // take, float <-> storage conversions, vector loads that widen a run of
 // elements to float32, and the PTX wrappers of the tensor-core kernels
-// (mma.sync, ldmatrix, cp.async).
+// (mma.sync, ldmatrix, cp.async) with the bf16 packing they feed on.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -143,6 +143,22 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// float32 pair -> two bf16 (low half = x), rounded to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// a float32 pair as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi):
+// the A operand of a product whose float32 factor one bf16 cannot carry
+__device__ __forceinline__ void pack_bf16_hi_lo(float x, float y,
+                                                uint32_t& hi, uint32_t& lo) {
+  float hf[2];
+  hi = pack_bf16(x, y);
+  bf16x2_to_f(hi, hf);  // exact: float(hi)
+  lo = pack_bf16(x - hf[0], y - hf[1]);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas kernel src/repro/kernels/decode_attention.py:103
 // (decode_attention / _decode_kernel :27): q (B, H, d) against K/V caches
-// in the model layout (B, K, KV, d), GQA group g = H / KV per KV head;
-// cache position p counts for sequence b when
+// in the model layout (B, K, KV, d), GQA group g = H / KV per KV head (any
+// g); cache position p counts for sequence b when
 //
 //   p < length  and  (window <= 0 or length - 1 - p < window)
 //
@@ -17,49 +17,120 @@
 // llama3.2-3b (B 8, KV 8, d 128, bf16, length 6,000) that is 197 MB,
 // 0.059 ms at 3.35 TB/s, against 1.2 flops per byte.
 //
-// Design (FlashDecoding): the cache axis is cut into splits of `split`
-// positions; one block of four warps per (split, KV head, sequence).  A
-// split that lies wholly at or beyond `length`, or wholly older than
-// `window`, does no loads at all: the bytes read are the valid rows only.
-// Each warp walks its positions four at a time and requests the four K
-// rows and the four V rows of a step before it uses any, so that eight
-// row loads are in flight a warp: the kernel lives on memory-level
-// parallelism, not on arithmetic.  A lane holds d / 32 elements of a row,
-// so a warp reads each row with one coalesced load, once for the whole
-// GQA group (the group's query rows and accumulators stay in registers,
-// sized by the group rounded up to 1, 2, 4 or 8, which keeps the register
-// count, and so the number of warps an SM holds, as the group allows).
-// Scores are warp all-reduces; each warp keeps float32 running max / sum
-// / accumulator, the four warps are merged through shared memory, and the
-// block writes one partial (m, l, acc) per query head.  A second kernel combines the partials of a query head by
-// log-sum-exp, divides and stores in q's dtype.  The caches are read
-// through their strides, so the model layout is never transposed.
+// Splits (FlashDecoding).  The host (kernels/decode_attention.py,
+// split_count) launches nsplit blocks per (KV head sub-group, sequence),
+//
+//   nsplit = max(1, min(ceil(K / BK), resident / (B * KV * n_sub)))
+//
+// with `resident` the SMs times the blocks an SM holds of this kernel
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), so that the grid runs
+// as one wave where it can.  Each block reads length and window and finds
+// its own share of the valid range (split_range below; split_tiles in the
+// wrapper repeats it, and the CPU tests check that the shares cover the
+// range once):
+//
+//   hi = min(length, K),  lo = window > 0 ? max(0, length - window) : 0
+//   no tile when hi <= lo; else t0 = lo / BK, n = ceil(hi / BK) - t0,
+//   split sp takes tiles [t0 + n sp / nsplit, t0 + n (sp + 1) / nsplit)
+//
+// Tiles are BK positions at absolute multiples of BK, so no tile is read
+// by two blocks and the shares differ by at most one tile.  A block
+// without a tile writes m = -1e30, l = 0 and a zero accumulator.  Each
+// block writes one partial (m, l, acc) per query head, and a second
+// kernel combines a head's nsplit partials by log-sum-exp, divides by
+// max(l, 1e-30) and stores in q's dtype.
+//
+// bf16 (route "mma"): FlashDecoding with the GQA group as the M dimension
+// of the tensor-core tile, as FlashInfer runs GQA decode.
+//  - A block takes a sub-group of at most 16 query heads of one KV head
+//    (n_sub = ceil(g / 16) sub-groups, balanced), its rows zero-padded
+//    to 16 in shared memory.
+//  - One producer warp keeps a ring of K and V tiles full by TMA under
+//    mbarriers: a BK x d tile of one KV head comes in as d / 64 boxes of
+//    BK x 64 through a 4-D tensor map over the cache, dims (d, KV, K, B)
+//    with the tensor's own byte strides, under the 128-byte swizzle; TMA
+//    zero-fills positions past K.  STAGES x 2 tiles are in flight a block
+//    (96 KB at d 128, two blocks an SM): the ring's depth, not the
+//    register file, sets the bytes in flight.
+//  - Four consumer warps take 16 positions each of every tile.  S = Q K^T
+//    on mma.sync m16n8k16: Q's A fragments stay in registers for d <= 128
+//    (re-read by ldmatrix from shared memory at d 256, where the 16 x 256
+//    float32 accumulator takes 128 registers), K's B fragments come by
+//    ldmatrix from the swizzled tile (the 16-byte chunk c of row r sits
+//    at chunk c ^ (r % 8)).  The float32 scores are scaled by
+//    scale * log2(e) after the product (a bf16 q cannot carry the scale),
+//    positions outside [lo, hi) are set to -1e30 and their weights forced
+//    to 0, and the online softmax runs in base 2 in registers.  O += P V
+//    takes P as two bf16 terms, P_hi + P_lo (one bf16 P fails the bf16
+//    limit, as for flash attention), against V's B fragments by
+//    ldmatrix.trans.
+//  - The four warps' (m, l, O) are merged through shared memory (the
+//    consumed ring) at the end.
+//
+// float32 (route "fma"): scalar IEEE float32 FMAs, whose 3e-5 tolerance
+// rules out bf16 and TF32 products.  One block of four warps per (split,
+// sub-group of at most 8 query heads, sequence); each warp walks its
+// positions four at a time and requests the four K rows and the four V
+// rows of a step before it uses any.  A lane holds d / 32 elements of a
+// row; the sub-group's query rows and accumulators stay in registers,
+// sized by the sub-group rounded up to 1, 2, 4 or 8.  Scores are warp
+// all-reduces, and the warps merge through shared memory.  The caches
+// are read through their strides on both routes, so the model layout is
+// never transposed.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
-#define MAX_G 8
-#define NW 4  // warps a block
-#define U 4   // positions a warp takes per step
+#define BK 64  // cache positions a tile: one split's unit of work
 
-// G: the group size rounded up to 1, 2, 4 or 8 (g <= G query heads per
-// KV head are live; the registers are sized by G)
-template <typename T, int EPL, int G>
+// the valid positions [lo, hi) and split sp's tiles [t_begin, t_end)
+struct Range {
+  int lo, hi, t_begin, t_end;
+};
+
+__device__ __forceinline__ Range split_range(int length, int window, int K,
+                                             int sp, int nsplit) {
+  Range r;
+  r.hi = min(length, K);
+  r.lo = window > 0 ? (int)max(0LL, (long long)length - window) : 0;
+  r.t_begin = r.t_end = 0;
+  if (r.hi > r.lo) {
+    const int t0 = r.lo / BK;
+    const long long n = (r.hi + BK - 1) / BK - t0;
+    r.t_begin = t0 + (int)(n * sp / nsplit);
+    r.t_end = t0 + (int)(n * (sp + 1) / nsplit);
+  }
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// float32: scalar FMAs
+// ---------------------------------------------------------------------------
+
+#define NW 4     // warps a block
+#define U 4      // positions a warp takes per step
+#define FMA_G 8  // query heads a block, at most
+
+// G: the block's sub-group size rounded up to 1, 2, 4 or 8 (gs <= G query
+// heads are live; the registers are sized by G).  Blocks (sp, n * n_sub +
+// sub, b): heads n g + sub gsz .. + gs - 1.
+template <int EPL, int G>
 __global__ void __launch_bounds__(NW * 32)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                      const T* __restrict__ vc, long long kb, long long kp,
+decode_partial_kernel(const float* __restrict__ q,
+                      const float* __restrict__ kc,
+                      const float* __restrict__ vc, long long kb, long long kp,
                       long long kn, long long vb, long long vp, long long vn,
-                      int H, int K, int g, int split, int nsplit,
+                      int H, int K, int g, int gsz, int n_sub, int nsplit,
                       const int* len_dev, int len_host, const int* win_dev,
                       int win_host, float scale, float* __restrict__ part_acc,
                       float* __restrict__ part_ml) {
   constexpr int DH = 32 * EPL;
-  const int sp = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
+  const int sp = blockIdx.x, b = blockIdx.z;
+  const int n = blockIdx.y / n_sub, sub = blockIdx.y % n_sub;
+  const int h0 = n * g + sub * gsz, gs = min(gsz, g - sub * gsz);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int length = len_dev ? *len_dev : len_host;
-  const int window = win_dev ? *win_dev : win_host;
-  int lo = sp * split;
-  const int hi = min(min(lo + split, K), length);
-  if (window > 0) lo = max(lo, length - window);
+  const Range r = split_range(len_dev ? *len_dev : len_host,
+                              win_dev ? *win_dev : win_host, K, sp, nsplit);
+  const int lo = max(r.lo, r.t_begin * BK), hi = min(r.hi, r.t_end * BK);
 
   float qf[G][EPL], acc[G][EPL], m[G], l[G];
 #pragma unroll
@@ -68,15 +139,15 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     l[j] = 0.f;
 #pragma unroll
     for (int t = 0; t < EPL; ++t) acc[j][t] = qf[j][t] = 0.f;
-    if (j < g) {
-      load_f<EPL>(q + ((long long)b * H + n * g + j) * DH + lane * EPL, qf[j]);
+    if (j < gs) {
+      load_f<EPL>(q + ((long long)b * H + h0 + j) * DH + lane * EPL, qf[j]);
 #pragma unroll
       for (int t = 0; t < EPL; ++t) qf[j][t] *= scale;
     }
   }
 
-  const T* kbase = kc + b * kb + n * kn + lane * EPL;
-  const T* vbase = vc + b * vb + n * vn + lane * EPL;
+  const float* kbase = kc + b * kb + n * kn + lane * EPL;
+  const float* vbase = vc + b * vb + n * vn + lane * EPL;
   for (int p0 = lo + warp * U; p0 < hi; p0 += NW * U) {
     // every K and V row of the step is requested before any is used
     float kr[U][EPL], vr[U][EPL];
@@ -135,7 +206,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int t = 0; t < EPL; ++t) sm_acc[warp][j][lane * EPL + t] = acc[j][t];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < g * DH; idx += NW * 32) {
+  for (int idx = threadIdx.x; idx < gs * DH; idx += NW * 32) {
     const int j = idx / DH, c = idx % DH;
     float M = NEG_INF;
 #pragma unroll
@@ -147,7 +218,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       L += sm_l[w][j] * f;
       A += sm_acc[w][j][c] * f;
     }
-    const long long head = ((long long)b * H + n * g + j) * nsplit + sp;
+    const long long head = ((long long)b * H + h0 + j) * nsplit + sp;
     part_acc[head * DH + c] = A;
     if (c == 0) {
       part_ml[head * 2] = M;
@@ -156,7 +227,296 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// bf16: TMA ring, mma.sync
+// ---------------------------------------------------------------------------
+
+#define NCW 4                 // consumer warps, 16 positions of a tile each
+#define NT (32 * (NCW + 1))   // and one producer warp
+#define MMA_G 16              // query heads a block, at most (the mma's M)
+
+template <int DH>
+struct Cfg {
+  static constexpr int NB = DH / 64;       // 64-wide boxes a row
+  static constexpr int BOX = BK * 128;     // bytes of a box: BK swizzled rows
+  static constexpr int TILE = NB * BOX;    // a K or a V tile
+  static constexpr int STAGES = DH == 64 ? 4 : 3;
+  static constexpr int MINB = DH == 64 ? 3 : DH == 128 ? 2 : 1;
+  static constexpr int RING = STAGES * 2 * TILE;
+  static constexpr int QP = DH + 8;        // Q row pitch: ldmatrix without
+                                           // bank conflicts
+  static constexpr int RP = DH + 4;        // merge row pitch (floats)
+  // the ring (1024-byte aligned for the swizzle), Q, the barriers
+  static constexpr int SMEM =
+      1024 + RING + MMA_G * QP * 2 + 2 * STAGES * (int)sizeof(uint64_t);
+  static_assert((NCW * MMA_G * RP + 2 * NCW * MMA_G) * 4 <= RING,
+                "the merge must fit in the consumed ring");
+};
+
+template <int DH>
+__global__ void __launch_bounds__(NT, Cfg<DH>::MINB)
+decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
+                   __grid_constant__ const CUtensorMap tv,
+                   const bf16* __restrict__ q, int H, int K, int g, int gsz,
+                   int n_sub, int nsplit, const int* len_dev, int len_host,
+                   const int* win_dev, int win_host, float scale_log2,
+                   float* __restrict__ part_acc, float* __restrict__ part_ml) {
+  using C = Cfg<DH>;
+  constexpr int NO = DH / 8;          // n8 fragments of O
+  constexpr bool Q_REG = DH <= 128;   // Q's A fragments held in registers
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16(*qs)[C::QP] = reinterpret_cast<bf16(*)[C::QP]>(ring + C::RING);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + C::RING + MMA_G * C::QP * 2);
+  uint64_t* empty = full + C::STAGES;
+
+  const int sp = blockIdx.x, b = blockIdx.z;
+  const int n = blockIdx.y / n_sub, sub = blockIdx.y % n_sub;
+  const int h0 = n * g + sub * gsz, gs = min(gsz, g - sub * gsz);
+  const Range r = split_range(len_dev ? *len_dev : len_host,
+                              win_dev ? *win_dev : win_host, K, sp, nsplit);
+  const int n_tiles = r.t_end - r.t_begin;
+  // partial row of head h0 + j: row0 + j nsplit
+  const long long row0 = ((long long)b * H + h0) * nsplit + sp;
+
+  if (n_tiles <= 0) {  // no tile: an empty partial, the ring untouched
+    for (int idx = threadIdx.x; idx < gs * DH; idx += NT) {
+      const int j = idx / DH, c = idx % DH;
+      const long long row = row0 + (long long)j * nsplit;
+      part_acc[row * DH + c] = 0.f;
+      if (c == 0) {
+        part_ml[row * 2] = NEG_INF;
+        part_ml[row * 2 + 1] = 0.f;
+      }
+    }
+    return;
+  }
+
+  // the sub-group's query rows, zero-padded to 16
+  for (int idx = threadIdx.x; idx < MMA_G * DH / 8; idx += NT) {
+    const int j = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (j < gs)
+      v = *reinterpret_cast<const uint4*>(q + ((long long)b * H + h0 + j) *
+                                                  DH + c);
+    *reinterpret_cast<uint4*>(&qs[j][c]) = v;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);       // the producer's arrival (+ bytes)
+      mbar_init(&empty[s], NCW);    // one a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // consumer state: rows grp and grp + 8 of O, columns 8 j + 2 tig (+1)
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
+
+  if (warp == NCW) {
+    // producer: one thread keeps the ring full
+    if (lane == 0) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % C::STAGES;
+        // the stage's previous round has been read (round 0 passes)
+        mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+        uint8_t* kt = ring + s * 2 * C::TILE;
+        uint8_t* vt = kt + C::TILE;
+        mbar_arrive_expect_tx(&full[s], 2 * C::TILE);
+        const int p = (r.t_begin + i) * BK;
+#pragma unroll
+        for (int x = 0; x < C::NB; ++x) {
+          tma_load_4d(kt + x * C::BOX, &tk, &full[s], 64 * x, n, p, b);
+          tma_load_4d(vt + x * C::BOX, &tv, &full[s], 64 * x, n, p, b);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    const int tig = lane % 4;
+    // ldmatrix row addresses.  Q's A fragment: rows lane % 16, column
+    // block lane / 16.  K's B fragments: positions lane % 8 + 8 (lane /
+    // 16) of the warp's 16, 16-byte chunk (lane / 8) % 2 of each k16
+    // step.  V's transposed B fragments: positions lane % 16, chunk
+    // lane / 16 of each 16 columns.  Every row a lane addresses has
+    // r % 8 == lane % 8, which the swizzle XORs into the chunk.
+    const bf16* q_frag = &qs[lane % 16][(lane / 16) * 8];
+    const int sw = lane & 7;
+    const int k_row = (warp * 16 + lane % 8 + (lane / 16) * 8) * 128;
+    const int k_ch = (lane / 8) % 2;
+    const int v_row = (warp * 16 + lane % 16) * 128;
+    const int v_ch = lane / 16;
+    uint32_t qa[Q_REG ? DH / 16 : 1][4];
+    if constexpr (Q_REG) {
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) ldmatrix_x4(qa[kk], q_frag + kk * 16);
+    }
+
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % C::STAGES;
+      mbar_wait(&full[s], (i / C::STAGES) & 1);
+      const uint8_t* kt = ring + s * 2 * C::TILE;
+      const uint8_t* vt = kt + C::TILE;
+      const int p0 = (r.t_begin + i) * BK + warp * 16;
+      // a warp whose 16 positions are all masked changes nothing; one
+      // that straddles lo or hi tests them one by one
+      const bool none = p0 + 16 <= r.lo || p0 >= r.hi;
+      const bool edge = p0 < r.lo || p0 + 16 > r.hi;
+      if (!none) {
+        // S = Q K^T: two n8 fragments, positions 0-7 and 8-15
+        float sc[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          uint32_t a[4], bb[4];
+          if constexpr (Q_REG) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+          } else {
+            ldmatrix_x4(a, q_frag + kk * 16);
+          }
+          const int ch = ((kk & 3) * 2 + k_ch) ^ sw;
+          ldmatrix_x4(bb, kt + (kk >> 2) * C::BOX + k_row + ch * 16);
+          mma_bf16(sc[0], a, bb);
+          mma_bf16(sc[1], a, bb + 2);
+        }
+
+        // scores in base-2 units; masked ones at -1e30, their weights 0
+        uint32_t masked = 0;  // bit 4 j + e: sc[j][e] is masked
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[j][e] *= scale_log2;
+            const int p = p0 + j * 8 + tig * 2 + (e & 1);
+            if (edge && (p < r.lo || p >= r.hi)) {
+              sc[j][e] = NEG_INF;
+              masked |= 1u << (4 * j + e);
+            }
+          }
+        float mx_lo = fmaxf(fmaxf(sc[0][0], sc[0][1]), fmaxf(sc[1][0], sc[1][1]));
+        float mx_hi = fmaxf(fmaxf(sc[0][2], sc[0][3]), fmaxf(sc[1][2], sc[1][3]));
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+        }
+        const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+        const float al_lo = exp2f(m_lo - mn_lo), al_hi = exp2f(m_hi - mn_hi);
+        m_lo = mn_lo;
+        m_hi = mn_hi;
+        float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = (masked >> (4 * j + e)) & 1u
+                                ? 0.f
+                                : exp2f(sc[j][e] - (e < 2 ? mn_lo : mn_hi));
+            sc[j][e] = p;
+            if (e < 2) sum_lo += p; else sum_hi += p;
+          }
+        l_lo = l_lo * al_lo + sum_lo;
+        l_hi = l_hi * al_hi + sum_hi;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          acc[j][0] *= al_lo;
+          acc[j][1] *= al_lo;
+          acc[j][2] *= al_hi;
+          acc[j][3] *= al_hi;
+        }
+
+        // O += P V with P = P_hi + P_lo, the A fragment straight from the
+        // S fragments: rows g (positions 2t, 2t + 1, then 2t + 8, 2t + 9)
+        // from sc[0][0..1] and sc[1][0..1], rows g + 8 from [2..3]
+        uint32_t hi[4], lo[4];
+        pack_bf16_hi_lo(sc[0][0], sc[0][1], hi[0], lo[0]);
+        pack_bf16_hi_lo(sc[0][2], sc[0][3], hi[1], lo[1]);
+        pack_bf16_hi_lo(sc[1][0], sc[1][1], hi[2], lo[2]);
+        pack_bf16_hi_lo(sc[1][2], sc[1][3], hi[3], lo[3]);
+#pragma unroll
+        for (int dj = 0; dj < NO / 2; ++dj) {
+          uint32_t bb[4];
+          const int ch = ((dj & 3) * 2 + v_ch) ^ sw;
+          ldmatrix_x4_trans(bb, vt + (dj >> 2) * C::BOX + v_row + ch * 16);
+          mma_bf16(acc[2 * dj], hi, bb);
+          mma_bf16(acc[2 * dj], lo, bb);
+          mma_bf16(acc[2 * dj + 1], hi, bb + 2);
+          mma_bf16(acc[2 * dj + 1], lo, bb + 2);
+        }
+      }
+      __syncwarp();  // every lane has read the stage
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+  }
+
+  // merge the four consumer warps' (m, l, O) through the consumed ring
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);  // [NCW][16][RP]
+  float* red_m = red + NCW * MMA_G * C::RP;     // [NCW][16]
+  float* red_l = red_m + NCW * MMA_G;
+  if (warp < NCW) {
+    const int grp = lane / 4, tig = lane % 4;
+    float* lo_row = red + (warp * MMA_G + grp) * C::RP;
+    float* hi_row = lo_row + 8 * C::RP;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int c = j * 8 + tig * 2;
+      *reinterpret_cast<float2*>(lo_row + c) = make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(hi_row + c) = make_float2(acc[j][2], acc[j][3]);
+    }
+    if (tig == 0) {
+      red_m[warp * MMA_G + grp] = m_lo;
+      red_m[warp * MMA_G + grp + 8] = m_hi;
+      red_l[warp * MMA_G + grp] = l_lo;
+      red_l[warp * MMA_G + grp + 8] = l_hi;
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < gs * DH; idx += NT) {
+    const int j = idx / DH, c = idx % DH;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NCW; ++w) M = fmaxf(M, red_m[w * MMA_G + j]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < NCW; ++w) {
+      const float f = exp2f(red_m[w * MMA_G + j] - M);
+      L += red_l[w * MMA_G + j] * f;
+      A += red[(w * MMA_G + j) * C::RP + c] * f;
+    }
+    const long long row = row0 + (long long)j * nsplit;
+    part_acc[row * DH + c] = A;
+    if (c == 0) {
+      part_ml[row * 2] = M;  // base-2 units
+      part_ml[row * 2 + 1] = L;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// combine, launch
+// ---------------------------------------------------------------------------
+
+// one block of dh threads per (sequence, query head); m in base-2 units
+// from the bf16 kernel (BASE2), natural units from the float32 one
+template <typename T, bool BASE2>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml,
                                       T* __restrict__ out, int nsplit,
@@ -169,76 +529,189 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
   for (int s = 0; s < nsplit; ++s) M = fmaxf(M, ml[2 * s]);
   float L = 0.f, A = 0.f;
   for (int s = 0; s < nsplit; ++s) {
-    const float f = expf(ml[2 * s] - M);
+    const float f = BASE2 ? exp2f(ml[2 * s] - M) : expf(ml[2 * s] - M);
     L += ml[2 * s + 1] * f;
     A += pa[(long long)s * dh] * f;
   }
   out[bh * dh + c] = from_f<T>(A / fmaxf(L, 1e-30f));
 }
 
-template <typename T, int EPL, int G>
-static cudaError_t launch(const void* q, const void* k, const void* v,
-                          const long long* ks, const long long* vs, int B,
-                          int H, int KV, int K, int split, const int* len_dev,
-                          int len_host, const int* win_dev, int win_host,
-                          float scale, float* part_acc, float* part_ml,
-                          void* out, cudaStream_t st) {
-  const int nsplit = (K + split - 1) / split;
-  const dim3 grid(nsplit, KV, B);
-  decode_partial_kernel<T, EPL, G><<<grid, NW * 32, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, ks[0], ks[1], ks[2], vs[0],
-      vs[1], vs[2], H, K, H / KV, split, nsplit, len_dev, len_host, win_dev,
-      win_host, scale, part_acc, part_ml);
+// a group of g query heads as n_sub sub-groups of at most `most`, the
+// first ones of gsz heads
+static void sub_groups(int g, int most, int* n_sub, int* gsz) {
+  *n_sub = (g + most - 1) / most;
+  *gsz = (g + *n_sub - 1) / *n_sub;
+}
+
+template <int EPL, int G>
+static cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                              const long long* ks, const long long* vs,
+                              int B, int H, int KV, int K, int nsplit,
+                              const int* len_dev, int len_host,
+                              const int* win_dev, int win_host, float scale,
+                              float* part_acc, float* part_ml, void* out,
+                              cudaStream_t st) {
+  const int g = H / KV;
+  int n_sub, gsz;
+  sub_groups(g, FMA_G, &n_sub, &gsz);
+  const dim3 grid(nsplit, KV * n_sub, B);
+  decode_partial_kernel<EPL, G><<<grid, NW * 32, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, ks[0], ks[1], ks[2],
+      vs[0], vs[1], vs[2], H, K, g, gsz, n_sub, nsplit, len_dev, len_host,
+      win_dev, win_host, scale, part_acc, part_ml);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<B * H, 32 * EPL, 0, st>>>(part_acc, part_ml,
-                                                     (T*)out, nsplit, 32 * EPL);
+  decode_combine_kernel<float, false><<<B * H, 32 * EPL, 0, st>>>(
+      part_acc, part_ml, (float*)out, nsplit, 32 * EPL);
   return cudaGetLastError();
 }
 
+// a cache (B, K, KV, DH) with element strides {batch, position, head} as
+// the 4-D map (DH, KV, K, B), read in boxes of 64 x 1 x BK x 1
+template <int DH>
+static int encode_cache(CUtensorMap* map, const void* base, int B, int K,
+                        int KV, const long long* strides) {
+  if (strides[0] < 0 || strides[1] < 0 || strides[2] < 0)
+    return (int)cudaErrorInvalidValue;
+  const uint64_t dims[4] = {(uint64_t)DH, (uint64_t)KV, (uint64_t)K,
+                            (uint64_t)B};
+  const uint64_t bytes[3] = {(uint64_t)strides[2] * 2,
+                             (uint64_t)strides[1] * 2,
+                             (uint64_t)strides[0] * 2};
+  const uint32_t box[4] = {64, 1, BK, 1};
+  return encode_bf16<4>(map, base, dims, bytes, box);
+}
+
+template <int DH>
+static cudaError_t set_smem_bf16() {
+  return cudaFuncSetAttribute(decode_bf16_kernel<DH>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Cfg<DH>::SMEM);
+}
+
+template <int DH>
+static cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                               const long long* ks, const long long* vs,
+                               int B, int H, int KV, int K, int nsplit,
+                               const int* len_dev, int len_host,
+                               const int* win_dev, int win_host, float scale,
+                               float* part_acc, float* part_ml, void* out,
+                               cudaStream_t st) {
+  const int g = H / KV;
+  int n_sub, gsz;
+  sub_groups(g, MMA_G, &n_sub, &gsz);
+  CUtensorMap tk, tv;
+  int rc = encode_cache<DH>(&tk, k, B, K, KV, ks);
+  if (rc == 0) rc = encode_cache<DH>(&tv, v, B, K, KV, vs);
+  if (rc != 0) return (cudaError_t)rc;
+  cudaError_t err = set_smem_bf16<DH>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nsplit, KV * n_sub, B);
+  decode_bf16_kernel<DH><<<grid, NT, Cfg<DH>::SMEM, st>>>(
+      tk, tv, (const bf16*)q, H, K, g, gsz, n_sub, nsplit, len_dev, len_host,
+      win_dev, win_host, (float)(scale * 1.4426950408889634), part_acc,
+      part_ml);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_combine_kernel<bf16, true><<<B * H, DH, 0, st>>>(
+      part_acc, part_ml, (bf16*)out, nsplit, DH);
+  return cudaGetLastError();
+}
+
+// the float32 kernel's register tier for a group of g: its sub-groups'
+// size rounded up to 1, 2, 4 or 8
+static int f32_tier(int g) {
+  int n_sub, gsz;
+  sub_groups(g, FMA_G, &n_sub, &gsz);
+  return gsz <= 1 ? 1 : gsz <= 2 ? 2 : gsz <= 4 ? 4 : 8;
+}
+
+// How many blocks of the kernel a call with head size dh, group g and
+// dtype dt launches fit on one SM at once (the host's `resident` is this
+// times the SM count).  0 or a cudaError_t.
+extern "C" int decode_attention_blocks_per_sm(int dh, int g, int dt,
+                                              int* blocks) {
+  *blocks = 0;
+  if (g < 1) return (int)cudaErrorInvalidValue;
+  if (dt == DT_BF16) {
+#define DEC_OCC(D)                                                          \
+  {                                                                         \
+    const cudaError_t err = set_smem_bf16<D>();                             \
+    if (err != cudaSuccess) return (int)err;                                \
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
+        blocks, decode_bf16_kernel<D>, NT, Cfg<D>::SMEM);                   \
+  }
+    switch (dh) {
+      case 64: DEC_OCC(64);
+      case 128: DEC_OCC(128);
+      case 256: DEC_OCC(256);
+    }
+#undef DEC_OCC
+  } else if (dt == DT_F32) {
+#define DEC_OCC(E, GG)                                                      \
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(                \
+      blocks, decode_partial_kernel<E, GG>, NW * 32, 0)
+#define DEC_OCC_G(E)                  \
+  switch (f32_tier(g)) {              \
+    case 1: DEC_OCC(E, 1);            \
+    case 2: DEC_OCC(E, 2);            \
+    case 4: DEC_OCC(E, 4);            \
+    default: DEC_OCC(E, 8);           \
+  }
+    switch (dh) {
+      case 64: DEC_OCC_G(2);
+      case 128: DEC_OCC_G(4);
+      case 256: DEC_OCC_G(8);
+    }
+#undef DEC_OCC_G
+#undef DEC_OCC
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // q (B, H, dh) contiguous; k, v (B, K, KV, dh) with unit stride on dh and
-// element strides ks/vs = {batch, position, head}; out (B, H, dh).
-// part_acc: B * H * nsplit * dh floats, part_ml: B * H * nsplit * 2, with
-// nsplit = ceil(K / split).  len_dev / win_dev: device int32 or NULL (then
-// len_host / win_host).  dh in {64, 128, 256}; H / KV <= 8.
+// element strides {kb, kp, kn} / {vb, vp, vn} = {batch, position, head};
+// out (B, H, dh).  part_acc: B * H * nsplit * dh floats, part_ml:
+// B * H * nsplit * 2.  len_dev / win_dev: device int32 or NULL (then
+// len_host / win_host).  dh in {64, 128, 256}, any group H / KV.  dt
+// picks the route: DT_BF16 the TMA ring on mma.sync (16-byte aligned
+// caches with byte strides that are multiples of 16), DT_F32 scalar FMAs.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, long long kb, long long kp,
     long long kn, long long vb, long long vp, long long vn, int B, int H,
-    int KV, int K, int dh, int split, const int* len_dev, int len_host,
+    int KV, int K, int dh, int nsplit, const int* len_dev, int len_host,
     const int* win_dev, int win_host, float scale, float* part_acc,
     float* part_ml, void* out, int dt, void* stream) {
-  if (B < 1 || KV < 1 || K < 1 || split < 1 || H % KV != 0 ||
-      H / KV > MAX_G || B > 65535 || KV > 65535)
+  // the float32 route's sub-groups are the smaller: its grid is the taller
+  if (B < 1 || KV < 1 || H < 1 || K < 1 || nsplit < 1 || H % KV != 0 ||
+      B > 65535 || (long long)KV * ((H / KV + FMA_G - 1) / FMA_G) > 65535)
     return (int)cudaErrorInvalidValue;
   const long long ks[3] = {kb, kp, kn}, vs[3] = {vb, vp, vn};
   cudaStream_t st = (cudaStream_t)stream;
-  const int g = H / KV;
-  const int G = g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
-#define DEC_CASE(TT, E, GG)                                                  \
-  return (int)launch<TT, E, GG>(q, k, v, ks, vs, B, H, KV, K, split,         \
-                                len_dev, len_host, win_dev, win_host, scale, \
-                                part_acc, part_ml, out, st)
-#define DEC_GROUPS(TT, E)            \
-  switch (G) {                       \
-    case 1: DEC_CASE(TT, E, 1);      \
-    case 2: DEC_CASE(TT, E, 2);      \
-    case 4: DEC_CASE(TT, E, 4);      \
-    default: DEC_CASE(TT, E, 8);     \
-  }
-  if (dt == DT_F32) {
+#define DEC_ARGS                                                            \
+  q, k, v, ks, vs, B, H, KV, K, nsplit, len_dev, len_host, win_dev,         \
+      win_host, scale, part_acc, part_ml, out, st
+  if (dt == DT_BF16) {
     switch (dh) {
-      case 64: DEC_GROUPS(float, 2);
-      case 128: DEC_GROUPS(float, 4);
-      case 256: DEC_GROUPS(float, 8);
+      case 64: return (int)launch_bf16<64>(DEC_ARGS);
+      case 128: return (int)launch_bf16<128>(DEC_ARGS);
+      case 256: return (int)launch_bf16<256>(DEC_ARGS);
     }
-  } else if (dt == DT_BF16) {
-    switch (dh) {
-      case 64: DEC_GROUPS(bf16, 2);
-      case 128: DEC_GROUPS(bf16, 4);
-      case 256: DEC_GROUPS(bf16, 8);
-    }
+  } else if (dt == DT_F32) {
+#define DEC_F32(E)                                                          \
+  switch (f32_tier(H / KV)) {                                               \
+    case 1: return (int)launch_f32<E, 1>(DEC_ARGS);                         \
+    case 2: return (int)launch_f32<E, 2>(DEC_ARGS);                         \
+    case 4: return (int)launch_f32<E, 4>(DEC_ARGS);                         \
+    default: return (int)launch_f32<E, 8>(DEC_ARGS);                        \
   }
-#undef DEC_GROUPS
-#undef DEC_CASE
+    switch (dh) {
+      case 64: DEC_F32(2);
+      case 128: DEC_F32(4);
+      case 256: DEC_F32(8);
+    }
+#undef DEC_F32
+  }
+#undef DEC_ARGS
   return (int)cudaErrorInvalidValue;
 }

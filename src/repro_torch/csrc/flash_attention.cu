@@ -266,12 +266,6 @@ __device__ __forceinline__ void copy_tile(bf16 (*dst)[P], const bf16* src,
   }
 }
 
-// float32 pair -> two bf16 (low half = x), rounded to nearest even
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 template <int DH, int BKT>
 __global__ void __launch_bounds__(TB)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -423,12 +417,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             s[2 * kk + 1][2], s[2 * kk + 1][3]};
         uint32_t hi[4], lo[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float hf[2];
-          hi[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
-          bf16x2_to_f(hi[i], hf);  // exact: float(P_hi)
-          lo[i] = pack_bf16(x[2 * i] - hf[0], x[2 * i + 1] - hf[1]);
-        }
+        for (int i = 0; i < 4; ++i)
+          pack_bf16_hi_lo(x[2 * i], x[2 * i + 1], hi[i], lo[i]);
 #pragma unroll
         for (int dj = 0; dj < NO / 2; ++dj) {
           uint32_t bb[4];

@@ -1,8 +1,9 @@
 // PTX wrappers of Hopper's asynchronous machinery (sm_90a): mbarriers,
 // TMA tensor loads, wgmma with its shared-memory descriptors, and
 // setmaxnreg; and the host-side encoding of a TMA tensor map.  Used by
-// the grouped matmul's wgmma kernel; written so that later tensor-core
-// kernels (flash attention, the SSD scan) can take them as they are.
+// the grouped matmul's wgmma kernel and the bf16 decode attention kernel;
+// written so that later tensor-core kernels (flash attention, the SSD
+// scan) can take them as they are.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (header only: no -lcuda)
@@ -77,6 +78,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same for a 4-D map, coordinates (c0, c1, c2, c3) innermost first
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -202,23 +215,44 @@ static TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// a 3-D bf16 tensor, contiguous, dims (n0, n1, n2) innermost first, read
-// in boxes of (b0, b1, 1) with the 128-byte swizzle (b0 * 2 <= 128) and
-// zeros beyond the edges.  n0 % 8 == 0 and base 16-byte aligned, as TMA
-// asks.  Returns 0 or a cudaError_t.
-static int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0,
-                          uint64_t n1, uint64_t n2, uint32_t b0,
-                          uint32_t b1) {
+// a bf16 tensor of rank R, dims n[0..R) innermost first, unit stride on
+// dim 0 and byte strides s[0..R-1) for dims 1..R-1 (multiples of 16, as
+// TMA asks, like the base address), read in boxes of box[0..R) with the
+// 128-byte swizzle (box[0] * 2 <= 128) and zeros beyond the edges.
+// Returns 0 or a cudaError_t.
+template <int R>
+static int encode_bf16(CUtensorMap* map, const void* base,
+                       const uint64_t* n, const uint64_t* s,
+                       const uint32_t* box) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {n0, n1, n2};
-  const cuuint64_t strides[2] = {n0 * 2, n0 * n1 * 2};
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
+  cuuint64_t dims[R], strides[R - 1];
+  cuuint32_t boxes[R], step[R];
+  for (int i = 0; i < R; ++i) {
+    dims[i] = n[i];
+    boxes[i] = box[i];
+    step[i] = 1;
+    if (i + 1 < R) {
+      if (s[i] % 16 != 0 || s[i] >= (1ull << 40))
+        return (int)cudaErrorInvalidValue;
+      strides[i] = s[i];
+    }
+  }
   const CUresult rc = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base),
+      dims, strides, boxes, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// a 3-D bf16 tensor, contiguous, dims (n0, n1, n2) innermost first, read
+// in boxes of (b0, b1, 1); n0 % 8 == 0 and base 16-byte aligned
+static int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0,
+                          uint64_t n1, uint64_t n2, uint32_t b0,
+                          uint32_t b1) {
+  const uint64_t dims[3] = {n0, n1, n2};
+  const uint64_t strides[2] = {n0 * 2, n0 * n1 * 2};
+  const uint32_t box[3] = {b0, b1, 1};
+  return encode_bf16<3>(map, base, dims, strides, box);
 }

@@ -3,22 +3,25 @@ version.
 
 Replaces ``repro/kernels/decode_attention.py::decode_attention`` (Pallas
 ``_decode_kernel``): one query token per sequence, ``q (B, H, d)``,
-against K/V caches in the model layout ``(B, K, KV, d)``, GQA group
+against K/V caches in the model layout ``(B, K, KV, d)``, any GQA group
 ``H // KV`` per KV head, positions ``p < length`` and, for ``window > 0``,
 ``length - 1 - p < window``.  The caches are read through their strides
 (no transposed copy).  ``length`` and ``window`` are Python ints or
 one-element int32 tensors on the card, which the kernel reads from device
 memory: no ``.item()``, no host synchronisation.  The kernel
 (``csrc/decode_attention.cu``: split-K partials and a log-sum-exp
-combine) says what bounds it and how its design answers that.
-``decode_attention`` launches it for CUDA tensors and takes
-``ref.ref_decode_attention`` for CPU tensors.
+combine) says what bounds it and how its design answers that.  Two
+routes, by dtype (``decode_attention_route``): ``mma`` for bfloat16 (a
+TMA ring and the GQA group on ``mma.sync``), ``fma`` for float32 (scalar
+IEEE FMAs).  ``decode_attention`` launches the kernel for CUDA tensors
+and takes ``ref.ref_decode_attention`` for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -26,19 +29,83 @@ from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_decode_attention
 
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 8                    # query heads per KV head kept in registers
-MIN_SPLIT = 128                  # cache positions per block, at least
-MAX_SPLITS = 64                  # blocks per (sequence, KV head), at most
+BLOCK_K = 64                       # cache positions a tile (csrc BK)
+SUB_GROUP = {"mma": 16, "fma": 8}  # query heads a block, at most
+
+# (device index, d, group, dtype code) -> blocks resident on the card
+_resident: Dict[Tuple[int, int, int, int], int] = {}
 
 
 def _lib():
-    fn = build.load("decode_attention").decode_attention_launch
+    lib = build.load("decode_attention")
+    fn = lib.decode_attention_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll, i, i, i, i, i, i,
                        p, i, p, i, ctypes.c_float, p, p, p, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        occ = lib.decode_attention_blocks_per_sm
+        occ.argtypes = [i, i, i, ctypes.POINTER(i)]
+        occ.restype = ctypes.c_int
+    return lib
+
+
+def decode_attention_route(q: torch.Tensor, *_) -> str:
+    """The kernel a CUDA call takes: ``mma`` for bfloat16, ``fma`` for
+    float32."""
+    return "mma" if q.dtype == torch.bfloat16 else "fma"
+
+
+def split_count(B: int, KV: int, n_sub: int, K: int, resident: int) -> int:
+    """Blocks per (KV head sub-group, sequence): as many as fill the
+    card's ``resident`` blocks once, at most one per tile of the cache."""
+    return max(1, min(-(-K // BLOCK_K), resident // (B * KV * n_sub)))
+
+
+def split_tiles(K: int, length: int, window: int, sp: int,
+                nsplit: int) -> Tuple[int, int]:
+    """``[t_begin, t_end)``: the tiles of ``BLOCK_K`` positions that split
+    ``sp`` of ``nsplit`` reads, as the kernel's ``split_range`` computes
+    them: an equal share, +-1, of the tiles that hold the valid positions
+    ``[lo, hi)``."""
+    hi = min(length, K)
+    lo = max(0, length - window) if window > 0 else 0
+    if hi <= lo:
+        return 0, 0
+    t0 = lo // BLOCK_K
+    n = -(-hi // BLOCK_K) - t0
+    return t0 + n * sp // nsplit, t0 + n * (sp + 1) // nsplit
+
+
+def _resident_blocks(device: torch.device, d: int, group: int,
+                     dt: int) -> int:
+    """SMs times the blocks of the kernel an SM holds, queried once per
+    device and shape class."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (index, d, group, dt)
+    if key not in _resident:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = _lib().decode_attention_blocks_per_sm(
+                d, group, dt, ctypes.byref(per_sm))
+        if rc != 0 or per_sm.value < 1:
+            raise RuntimeError(f"decode_attention: occupancy query failed "
+                               f"(cudaError {rc}, {per_sm.value} blocks)")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _resident[key] = per_sm.value * sms
+    return _resident[key]
+
+
+def decode_attention_nsplit(q: torch.Tensor, k_cache: torch.Tensor) -> int:
+    """The splits a CUDA call on these inputs launches."""
+    B, H, d = q.shape
+    _, K, KV, _ = k_cache.shape
+    route = decode_attention_route(q)
+    n_sub = -(-(H // KV) // SUB_GROUP[route])
+    dt = backend.KERNEL_DTYPES[q.dtype]
+    return split_count(B, KV, n_sub, K,
+                       _resident_blocks(q.device, d, H // KV, dt))
 
 
 def _runtime_scalar(name: str, val, device: torch.device):
@@ -81,10 +148,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.shape[0] != B or dk != d or KV < 1 or H % KV:
         raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} "
                          f"do not fit q {tuple(q.shape)}")
-    if d not in HEAD_DIMS or H // KV > MAX_GROUP:
+    if d not in HEAD_DIMS:
         raise ValueError(f"decode_attention: the kernel takes d in "
-                         f"{HEAD_DIMS} and at most {MAX_GROUP} query heads "
-                         f"per KV head, got d={d}, group {H // KV}")
+                         f"{HEAD_DIMS}, got d={d}")
     if not (q.is_contiguous() and backend.rows_aligned(q)
             and backend.rows_aligned(k_cache)
             and backend.rows_aligned(v_cache)):
@@ -94,17 +160,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     win_dev, win_host = _runtime_scalar("window", window, q.device)
     if q.numel() == 0 or K == 0:
         return torch.zeros_like(q)
-    split = max(MIN_SPLIT, -(-K // MAX_SPLITS))
-    nsplit = -(-K // split)
+    nsplit = decode_attention_nsplit(q, k_cache)
     part_acc = torch.empty(B * H * nsplit * d, dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty(B * H * nsplit * 2, dtype=torch.float32,
                           device=q.device)
     out = torch.empty_like(q)
-    backend.launch("decode_attention", _lib(), q.data_ptr(),
-                   k_cache.data_ptr(), v_cache.data_ptr(),
+    backend.launch("decode_attention", _lib().decode_attention_launch,
+                   q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                    *k_cache.stride()[:3], *v_cache.stride()[:3],
-                   B, H, KV, K, d, split, len_dev, len_host, win_dev,
+                   B, H, KV, K, d, nsplit, len_dev, len_host, win_dev,
                    win_host, 1.0 / math.sqrt(d),
                    part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
                    dt, device=q.device)

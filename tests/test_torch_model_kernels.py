@@ -20,6 +20,8 @@ from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref as ref_oracle  # noqa: E402
 from repro_torch.convert import to_tensor  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    BLOCK_K, decode_attention_route, split_count, split_tiles)
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul_route)
 
@@ -191,6 +193,64 @@ def test_decode_attention_edge_lengths(length, as_tensor):
         np.testing.assert_allclose(
             got.numpy(), np.repeat(vct[:, 0].numpy(), 2, axis=1),
             rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("length,window", [(400, 128), (512, 0)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("group", [12, 5])
+def test_decode_attention_large_groups(group, dtype, length, window):
+    """Groups above 8 query heads per KV head (command-r-plus-104b: 96
+    over 8) and an odd one (hymba-1.5b: 25 over 5), which the kernel runs
+    as sub-groups of at most 16 (bf16) or 8 (float32) heads a block."""
+    B, KV, K, d = 2, 2, 512, 64
+    (q, qt), (kc, kct), (vc, vct) = _decode_inputs(20 + group, B, KV * group,
+                                                   KV, K, d, dtype)
+    got = ops.decode_attention(qt, kct, vct, length, window)
+    assert got.shape == (B, KV * group, d)
+    _close(got, ref_ops.decode_attention(q, kc, vc, length, window,
+                                         block_k=256), "decode", dtype)
+
+
+@pytest.mark.parametrize("nsplit", [1, 4, 33])
+@pytest.mark.parametrize("window", [0, 1, 100, 2000])   # 2000: past K
+@pytest.mark.parametrize("length", [0, 1, 63, 64, 65, 1000])
+def test_decode_split_tiles_cover_the_valid_range_once(length, window,
+                                                       nsplit):
+    """The splits' tiles, as the kernel plans them from the device's
+    length and window, hold every valid position exactly once: disjoint,
+    in order, equal shares +-1, none wholly outside the valid range."""
+    K = 1000
+    lo = max(0, length - window) if window > 0 else 0
+    hi = min(length, K)
+    tiles = [split_tiles(K, length, window, sp, nsplit)
+             for sp in range(nsplit)]
+    seen = np.zeros(K, np.int64)
+    for a, b in tiles:
+        assert 0 <= a <= b
+        seen[max(lo, a * BLOCK_K):min(hi, b * BLOCK_K)] += 1
+    assert (seen[lo:hi] == 1).all() and seen.sum() == max(0, hi - lo)
+    flat = [t for a, b in tiles for t in range(a, b)]
+    want = list(range(lo // BLOCK_K, -(-hi // BLOCK_K))) if hi > lo else []
+    assert flat == want
+    sizes = [b - a for a, b in tiles]
+    assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("B,KV,n_sub,K,resident,want", [
+    (8, 8, 1, 8192, 264, 4),    # llama3.2-3b, 2 blocks an SM x 132 SMs
+    (8, 5, 1, 8192, 396, 9),    # hymba-1.5b, 3 blocks an SM
+    (8, 32, 1, 4096, 396, 1),   # musicgen-large: a wave holds no split
+    (8, 8, 2, 8192, 640, 5),    # two sub-groups a KV head
+    (1, 1, 1, 100, 264, 2),     # at most one split a tile of the cache
+])
+def test_decode_split_count(B, KV, n_sub, K, resident, want):
+    assert split_count(B, KV, n_sub, K, resident) == want
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "fma")])
+def test_decode_attention_route(dtype, route):
+    assert decode_attention_route(torch.zeros(1, 2, 64, dtype=dtype)) == route
 
 
 # ---------------------------------------------------------------------------
