@@ -41,7 +41,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      phi3.5-moe: rmsnorm (hidden norm and qk-norm, and mamba2-780m's
      norms at its prefill and decode shapes), flash attention
      (causal prefill, sliding window), decode attention (GQA decode,
-     local and global layers, length 1 and 0 from device tensors, and
+     local and global layers, length 1 and 0 from device int32 tensors,
+     a length in a default int64 tensor on the card, each such call
+     also run once under ``set_sync_debug_mode("error")``, and
      command-r-plus-104b's group of 12, hymba-1.5b's 5 and
      musicgen-large's 1; each case checked to take the route its dtype
      asks for, with its split count recorded) and
@@ -51,8 +53,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      and d 32, so that each of its instantiations is held), and the SSD
      chunked scan at mamba2-780m's full width (B 2 x S 4,096, H 48,
      P 64, N 128, chunk 256; fp32 and bf16), hymba-1.5b's SSM heads
-     (H 50, N 16) and edges (G = H, one chunk, strong decay, a near 0,
-     ragged P, N and chunk); checks that
+     (H 50, N 16) and edges (G = H, G 4 of H 48, one chunk, strong
+     decay, a near 0, ragged P, N and chunk), each case checked to take
+     the ``mma`` route, its ``ssd_*`` kernels built with no spills, its
+     bound that of split TF32 (three TF32 products a float32 one, a
+     product of two bf16 inputs at the bf16 rate); checks that
      each of the five kernels was launched once per shape, holds every
      output against its plain version on the same inputs (and the fp32
      SSD cases against the model's ``ssd_chunked`` in float64), and
@@ -109,11 +114,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor) and
-# dense bf16 tensor-core peaks
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 (non-tensor),
+# dense bf16 and dense TF32 tensor-core peaks (the sheet's 989 TFLOP/s
+# of TF32 is quoted with sparsity)
 MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 494.5e12
 L2_BYTES = 50e6
 
 THRESH = 0.999
@@ -853,7 +860,9 @@ def model_cases(torch, device):
         kc, vc = randn(B, K, KV, d, dtype=dt), randn(B, K, KV, d, dtype=dt)
         n_valid = valid_count(K, length, window)
         arg = (torch.tensor(length, dtype=torch.int32, device=device)
-               if "device int32" in label else length)
+               if "device int32" in label else
+               torch.tensor(length, device=device)   # torch's default int64
+               if "int64 length" in label else length)
         pos = torch.arange(K, device=device)
         mask = ((pos < length) & ((length - 1 - pos) < window
                                   if window > 0 else True))[None, None, None]
@@ -934,7 +943,7 @@ def model_cases(torch, device):
         add("ssd_scan", label, (x, dt, a, b, c), {"chunk": chunk},
             ref.ref_ssd_scan, None, bytes_moved, cb_flops + head_flops,
             dtype, reps, truth=ssd_float64 if dtype == f32 else None,
-            bf16_flops=cb_flops if dtype == bf16 else 0)
+            bf16_flops=cb_flops if dtype == bf16 else 0, route="mma")
 
     for args in (
             ("mamba2-780m SSD", 2, 4096, 48, 1, 64, 128, 256, "", "", f32, 10),
@@ -989,6 +998,14 @@ def model_cases(torch, device):
             ("edge: ragged cache, window inside tiles, bf16",
              (2, 8, 2, 64, 1000), 777, 100, bf16)):
         decode_case(*args)
+
+    # drawn after every earlier case: B8 with 1 < G < H, where each head
+    # finds its group's shared C B^T by index, and B5 with its length in
+    # a default-dtype (int64) tensor on the card
+    ssd_case("edge: G 4 of H 48", 1, 1024, 48, 4, 64, 128, 256, "", "", f32,
+             20)
+    decode_case("llama3.2-3b decode, int64 length", (8, 24, 8, 128, 8192),
+                6000, 0, bf16)
     return ops, cases
 
 
@@ -1009,9 +1026,11 @@ def phase_model_kernels(torch, device, card: str) -> list:
     from repro_torch.kernels.decode_attention import (
         decode_attention_nsplit, decode_attention_route)
     from repro_torch.kernels.grouped_matmul import grouped_matmul_route
+    from repro_torch.kernels.ssd_scan import ssd_scan_route
     # the kernel each op's case must take, by op (cases name it)
     route_of = {"grouped_matmul": grouped_matmul_route,
-                "decode_attention": decode_attention_route}
+                "decode_attention": decode_attention_route,
+                "ssd_scan": ssd_scan_route}
     ops, cases = model_cases(torch, device)
     names = tuple(name for name, _, _ in MODEL_KERNELS)
     for name in names:
@@ -1024,6 +1043,19 @@ def phase_model_kernels(torch, device, card: str) -> list:
         n = sum(c["op"] == name for c in cases)
         check(launches[name] == n, f"phase 6: {name} launched "
               f"{launches[name]} times for {n} shapes")
+    # a length tensor on the card, int32 or cast there from int64, costs
+    # the decode call no host synchronisation
+    for c in cases:
+        if c["op"] == "decode_attention" and torch.is_tensor(c["args"][3]):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ops.decode_attention(*c["args"], **c["kwargs"])
+            except RuntimeError as exc:
+                raise SmokeFailure(f"decode_attention, {c['label']}: the "
+                                   f"call synchronised with the host ({exc})")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
     per_case = []
     for c, out in zip(cases, outs):
@@ -1090,11 +1122,14 @@ def phase_model_kernels(torch, device, card: str) -> list:
                   f"evaluation ({truth_err['kernel']:.3g}) than the plain "
                   f"version ({truth_err['plain']:.3g})")
             del exact
-        if c["op"] in ("rmsnorm", "ssd_scan"):
-            # float32 math either way, but a product of two bf16 inputs
-            # (B8's C B^T) takes the tensor cores' bf16 rate, float32 sums
-            t_ops = ((c["flops"] - c["bf16_flops"]) / F32_OPS_PER_S
+        if c["op"] == "ssd_scan":
+            # the "mma" route: each float32 product as three TF32 products
+            # on the tensor cores; a product of two bf16 inputs (C B^T)
+            # at the card's bf16 rate
+            t_ops = (3 * (c["flops"] - c["bf16_flops"]) / TF32_OPS_PER_S
                      + c["bf16_flops"] / BF16_OPS_PER_S)
+        elif c["op"] == "rmsnorm":
+            t_ops = c["flops"] / F32_OPS_PER_S
         else:
             t_ops = c["flops"] / (BF16_OPS_PER_S if c["dtype"] ==
                                   torch.bfloat16 else F32_OPS_PER_S)
@@ -1377,6 +1412,11 @@ def setup(torch):
                 entry = line.split("'")[1] if "'" in line else line.strip()
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {name} {entry}: {line.strip()}")
+                # B8's ssd_* kernels are held to no spills at all
+                check(name != "ssd_scan" or "spill" not in line
+                      or ("0 bytes spill stores" in line
+                          and "0 bytes spill loads" in line),
+                      f"ptxas {name} {entry}: spills ({line.strip()})")
     return device, card
 
 

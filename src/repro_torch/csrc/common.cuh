@@ -1,8 +1,9 @@
 // Helpers shared by the model kernels (rmsnorm, grouped_matmul,
-// decode_attention, flash_attention): the dtype codes the C entry points
-// take, float <-> storage conversions, vector loads that widen a run of
-// elements to float32, and the PTX wrappers of the tensor-core kernels
-// (mma.sync, ldmatrix, cp.async) with the bf16 packing they feed on.
+// decode_attention, flash_attention, ssd_scan): the dtype codes the C
+// entry points take, float <-> storage conversions, vector loads that
+// widen a run of elements to float32, and the PTX wrappers of the
+// tensor-core kernels (mma.sync in bf16 and in split TF32, ldmatrix,
+// cp.async) with the bf16 packing and TF32 splitting they feed on.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -143,6 +144,52 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b on the tensor cores in TF32: a 16 x 8 A fragment (row-major),
+// an 8 x 8 B fragment (column-major), a 16 x 8 float32 accumulator.
+// Thread (g = lane / 4, t = lane % 4) holds A at (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); B at (t, g), (t + 4, g); C at (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).  The operands are float32
+// bit patterns already rounded to TF32 (tf32_rna); the tensor core reads
+// 10 bits of mantissa and ignores the rest.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// v rounded to TF32 (11 significant bits), to nearest, ties away
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v as two TF32 terms, hi = tf32(v) and lo = tf32(v - hi): hi + lo
+// carries 22 of float32's 24 bits (v - hi is exact)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// c += a b with float32-accurate operands from three TF32 products, the
+// small terms first: a_lo b_hi + a_hi b_lo, then a_hi b_hi (a_lo b_lo,
+// below float32's rounding, is dropped).  An operand that is exact in
+// TF32 (a bf16 value: 8 significant bits) has lo = 0 and skips its
+// term, so two bf16 operands take one product.
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma_tf32x3(float* c, const uint32_t* ah,
+                                           const uint32_t* al,
+                                           const uint32_t* bh,
+                                           const uint32_t* bl) {
+  if constexpr (!A_EXACT) mma_tf32(c, al, bh);
+  if constexpr (!B_EXACT) mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
 }
 
 // float32 pair -> two bf16 (low half = x), rounded to nearest even

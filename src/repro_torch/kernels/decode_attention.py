@@ -7,8 +7,9 @@ against K/V caches in the model layout ``(B, K, KV, d)``, any GQA group
 ``H // KV`` per KV head, positions ``p < length`` and, for ``window > 0``,
 ``length - 1 - p < window``.  The caches are read through their strides
 (no transposed copy).  ``length`` and ``window`` are Python ints or
-one-element int32 tensors on the card, which the kernel reads from device
-memory: no ``.item()``, no host synchronisation.  The kernel
+one-element integer tensors on the card (int32, or any other integer
+dtype cast to int32 there), which the kernel reads from device memory:
+no ``.item()``, no host synchronisation.  The kernel
 (``csrc/decode_attention.cu``: split-K partials and a log-sum-exp
 combine) says what bounds it and how its design answers that.  Two
 routes, by dtype (``decode_attention_route``): ``mma`` for bfloat16 (a
@@ -109,24 +110,29 @@ def decode_attention_nsplit(q: torch.Tensor, k_cache: torch.Tensor) -> int:
 
 
 def _runtime_scalar(name: str, val, device: torch.device):
-    """``(device pointer or None, host int)`` for ``length`` /
-    ``window``."""
+    """``(device pointer or None, host int, tensor to keep alive)`` for
+    ``length`` / ``window``.  A one-element integer tensor on ``device``
+    of another dtype than int32 (int64 is torch's default) is cast there,
+    asynchronously, as the reference casts any integer to int32; values
+    outside int32 are the caller's to avoid.  The caller holds the third
+    element until the launch that reads the pointer has been queued."""
     if isinstance(val, torch.Tensor):
         if val.numel() != 1 or val.dtype.is_floating_point:
             raise TypeError(f"decode_attention: {name} must be an int or a "
                             f"one-element integer tensor")
         if val.device.type == "cpu":
             val = int(val)       # already on the host: no synchronisation
-        elif val.device != device or val.dtype != torch.int32:
+        elif val.device != device:
             raise ValueError(f"decode_attention: {name} on the card must be "
-                             f"int32 on {device}, got {val.dtype} on "
-                             f"{val.device}")
+                             f"on {device}, got {val.dtype} on {val.device}")
         else:
-            return val.data_ptr(), 0
+            if val.dtype != torch.int32:
+                val = val.to(torch.int32)
+            return val.data_ptr(), 0, val
     val = int(val)
     if not -2 ** 31 <= val < 2 ** 31:
         raise ValueError(f"decode_attention: {name}={val} out of int32 range")
-    return None, val
+    return None, val, None
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -156,8 +162,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             and backend.rows_aligned(v_cache)):
         raise ValueError("decode_attention: q contiguous, and every row of "
                          "q and the caches unit-strided and 16-byte aligned")
-    len_dev, len_host = _runtime_scalar("length", length, q.device)
-    win_dev, win_host = _runtime_scalar("window", window, q.device)
+    # the third values hold any int32 copy made on the card until the
+    # launch that reads it has been queued
+    len_dev, len_host, _len = _runtime_scalar("length", length, q.device)
+    win_dev, win_host, _win = _runtime_scalar("window", window, q.device)
     if q.numel() == 0 or K == 0:
         return torch.zeros_like(q)
     nsplit = decode_attention_nsplit(q, k_cache)

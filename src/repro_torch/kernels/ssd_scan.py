@@ -8,9 +8,14 @@ dtype and the final state (B, H, P, N) in float32.  Head h reads group
 ``h // (H // G)``: the kernel indexes the group instead of expanding b
 and c.  x, b, c and dt are read through their strides (unit stride on
 the last axis), so the model's slices of its conv output need no copy.
-The kernel (``csrc/ssd_scan.cu``: three launches, one call) says what
-bounds it and how its design answers that.  ``ssd_scan`` launches it for
-CUDA tensors and takes ``ref.ref_ssd_scan`` for CPU tensors.
+The kernel (``csrc/ssd_scan.cu``: four launches, one call) says what
+bounds it and how its design answers that: C B^T once per (sequence,
+chunk, group), and every product on ``mma.sync`` in split TF32 (three
+TF32 products for each float32 one).  One route, ``"mma"``
+(``ssd_scan_route``), for every shape the kernel takes: a ragged P, N or
+chunk runs in zero-padded tiles.  ``ssd_scan`` launches it for CUDA
+tensors and takes ``ref.ref_ssd_scan`` for CPU tensors; nothing falls
+back when a build or launch fails.
 """
 
 from __future__ import annotations
@@ -26,13 +31,14 @@ from repro_torch.kernels.ref import ref_ssd_scan
 MAX_P = 64
 MAX_N = 128
 MAX_CHUNK = 1024
+TILE = 64                  # rows of a C B^T tile (csrc TILE)
 
 
 def _lib():
     fn = build.load("ssd_scan").ssd_scan_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 5 + [ll] * 12 + [i] * 9 + [p] * 6
+        fn.argtypes = [p] * 5 + [ll] * 12 + [i] * 9 + [p] * 7
         fn.restype = ctypes.c_int
     return fn
 
@@ -56,6 +62,31 @@ def _check(x, dt, a, b, c, chunk):
                          f"chunk={chunk}")
 
 
+def _codes(x, dt, a, b, c) -> Tuple[int, int]:
+    """The kernel's dtype codes of x (shared by b and c) and of dt; raises
+    for inputs the kernel does not take.  Reads only dtype and shape."""
+    x_dt = backend.kernel_dtype("ssd_scan", x, b, c)
+    dt_dt = backend.kernel_dtype("ssd_scan", dt)
+    if a.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: a must be float32, got {a.dtype}")
+    P, N = x.shape[-1], b.shape[-1]
+    if not (P <= MAX_P and N <= MAX_N):
+        raise ValueError(f"ssd_scan: the kernel takes P <= {MAX_P} and N <= "
+                         f"{MAX_N}, got P={P}, N={N}")
+    return x_dt, dt_dt
+
+
+def ssd_scan_route(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor) -> str:
+    """The kernel a CUDA call on these inputs launches: ``"mma"`` (split
+    TF32 on ``mma.sync``) for x, b and c sharing float32 or bfloat16, dt
+    float32 or bfloat16, a float32, P <= 64 and N <= 128; raises for
+    anything else.  Reads only dtype and shape, so it takes ``meta``
+    tensors too."""
+    _codes(x, dt, a, b, c)
+    return "mma"
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor,
              chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -67,16 +98,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _check(x, dt, a, b, c, chunk)
     if backend.kernel_route("ssd_scan", x, dt, a, b, c) == "cpu":
         return ref_ssd_scan(x, dt, a, b, c, chunk)
-    x_dt = backend.kernel_dtype("ssd_scan", x, b, c)
-    dt_dt = backend.kernel_dtype("ssd_scan", dt)
-    if a.dtype != torch.float32:
-        raise TypeError(f"ssd_scan: a must be float32, got {a.dtype}")
+    x_dt, dt_dt = _codes(x, dt, a, b, c)
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    if not (P <= MAX_P and N <= MAX_N and chunk <= MAX_CHUNK):
-        raise ValueError(f"ssd_scan: the kernel takes P <= {MAX_P}, N <= "
-                         f"{MAX_N} and chunk <= {MAX_CHUNK}, got P={P}, "
-                         f"N={N}, chunk={chunk}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"ssd_scan: the kernel takes chunk <= {MAX_CHUNK}, "
+                         f"got chunk={chunk}")
     if any(t.stride(-1) != 1 for t in (x, b, c)) or not a.is_contiguous():
         raise ValueError("ssd_scan: x, b and c need unit stride on their "
                          "last axis, a must be contiguous")
@@ -90,12 +117,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cs = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     st = torch.empty((B, S // chunk, H, P, N), dtype=torch.float32,
                      device=dev)
+    # C B^T: the causal 64 x 64 tile pairs of each (sequence, chunk, group)
+    nt = -(-chunk // TILE)
+    cb = torch.empty((B, S // chunk, G, nt * (nt + 1) // 2, TILE, TILE),
+                     dtype=torch.float32, device=dev)
     backend.launch("ssd_scan", _lib(), x.data_ptr(), dt.data_ptr(),
                    a.data_ptr(), b.data_ptr(), c.data_ptr(),
                    *x.stride()[:3], *dt.stride(), *b.stride()[:3],
                    *c.stride()[:3], B, S, H, G, P, N, chunk, x_dt, dt_dt,
                    y.data_ptr(), yf.data_ptr(), cs.data_ptr(), st.data_ptr(),
-                   state.data_ptr(), device=dev)
+                   cb.data_ptr(), state.data_ptr(), device=dev)
     ssd_scan.launches += 1
     return y, state
 

@@ -21,7 +21,8 @@ from repro.kernels import ref as ref_oracle  # noqa: E402
 from repro_torch.convert import to_tensor  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    BLOCK_K, decode_attention_route, split_count, split_tiles)
+    BLOCK_K, _runtime_scalar, decode_attention_route, split_count,
+    split_tiles)
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul_route)
 
@@ -251,6 +252,46 @@ def test_decode_split_count(B, KV, n_sub, K, resident, want):
                                          (torch.float32, "fma")])
 def test_decode_attention_route(dtype, route):
     assert decode_attention_route(torch.zeros(1, 2, 64, dtype=dtype)) == route
+
+
+@pytest.mark.parametrize("name", ["length", "window"])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32, torch.int16])
+def test_runtime_scalar_casts_on_the_device(name, dtype):
+    """A one-element integer tensor on the call's device, int64 (torch's
+    default) or any other integer dtype, is cast to int32 there and passed
+    by pointer: no host read (a ``meta`` tensor has no value to read, so
+    ``int()`` or ``.item()`` would raise), and the cast tensor is handed
+    back to be kept alive until the launch."""
+    dev = torch.device("meta")
+    val = torch.tensor(6000, dtype=dtype).to(dev)
+    ptr, host, keep = _runtime_scalar(name, val, dev)
+    assert host == 0 and ptr is not None
+    assert keep.dtype == torch.int32 and keep.device == dev
+    assert keep.numel() == 1
+    if dtype == torch.int32:
+        assert keep is val
+
+
+@pytest.mark.parametrize("val,device,error", [
+    (torch.tensor(6000.0, device="meta"), "meta", TypeError),
+    (torch.tensor(6000, device="meta"), "cuda", ValueError),
+    (torch.tensor([1, 2], device="meta"), "meta", TypeError),
+    (2 ** 31, "meta", ValueError),
+])
+def test_runtime_scalar_refuses(val, device, error):
+    """A float tensor, a tensor on another device than the call's, more
+    than one element, or an int out of int32's range raise."""
+    with pytest.raises(error):
+        _runtime_scalar("length", val, torch.device(device))
+
+
+@pytest.mark.parametrize("val", [6000, torch.tensor(6000),
+                                 torch.tensor(6000, dtype=torch.int32)])
+def test_runtime_scalar_host_values(val):
+    """Python ints and CPU tensors are read on the host and passed by
+    value."""
+    assert _runtime_scalar("length", val, torch.device("meta")) == (
+        None, 6000, None)
 
 
 # ---------------------------------------------------------------------------

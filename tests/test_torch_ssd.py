@@ -27,6 +27,7 @@ from repro.models import layers as ref_layers  # noqa: E402
 from repro_torch.convert import to_tensor  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_route  # noqa: E402
 from repro_torch.models import layers as port_layers  # noqa: E402
 
 F32, BF16 = jnp.float32, jnp.bfloat16
@@ -107,6 +108,56 @@ def test_ssd_scan_contracts_raise():
     before = ops.ssd_scan.launches
     ops.ssd_scan(x, dt, a, b, c, chunk=16)        # CPU: the plain version
     assert ops.ssd_scan.launches == before
+
+
+def _meta_ssd(B, S, H, G, P, N, dtype=torch.float32, dt_dtype=None,
+              a_dtype=torch.float32, bc_dtype=None):
+    """``meta`` tensors of the B8 inputs' shapes and dtypes: nothing is
+    allocated, and any read of a value would raise."""
+    def m(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    bc = bc_dtype or dtype
+    return (m((B, S, H, P), dtype), m((B, S, H), dt_dtype or torch.float32),
+            m((H,), a_dtype), m((B, S, G, N), bc), m((B, S, G, N), bc))
+
+
+@pytest.mark.parametrize("B,S,H,G,P,N,dtype", [
+    # chip_smoke's phase 6 cases: mamba2-780m fp32 and bf16, hymba-1.5b's
+    # SSM heads, G = H, one chunk, the decay edges, the ragged edge (P 20,
+    # N 10, chunk 48: zero-padded tiles) and G 4 of H 48
+    (2, 4096, 48, 1, 64, 128, torch.float32),
+    (2, 4096, 48, 1, 64, 128, torch.bfloat16),
+    (2, 4096, 50, 1, 64, 16, torch.bfloat16),
+    (1, 512, 48, 48, 64, 128, torch.float32),
+    (1, 256, 48, 1, 64, 128, torch.float32),
+    (1, 1024, 48, 1, 64, 128, torch.float32),
+    (1, 96, 3, 1, 20, 10, torch.float32),
+    (1, 1024, 48, 4, 64, 128, torch.float32),
+])
+def test_ssd_scan_route(B, S, H, G, P, N, dtype):
+    """Every shape the kernel takes goes to the split-TF32 ``mma``
+    kernel: there is no scalar route left."""
+    assert ssd_scan_route(*_meta_ssd(B, S, H, G, P, N, dtype)) == "mma"
+    assert ssd_scan_route(*_meta_ssd(B, S, H, G, P, N, dtype,
+                                     dt_dtype=torch.bfloat16)) == "mma"
+
+
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"dtype": torch.float16}, TypeError, "float32 or bfloat16"),
+    ({"bc_dtype": torch.bfloat16}, TypeError, "one dtype for all"),
+    ({"dt_dtype": torch.float16}, TypeError, "float32 or bfloat16"),
+    ({"a_dtype": torch.bfloat16}, TypeError, "a must be float32"),
+    ({"P": 65}, ValueError, "P <= 64"),
+    ({"N": 129}, ValueError, "N <= 128"),
+])
+def test_ssd_scan_route_refuses(kwargs, error, match):
+    """What the kernel cannot take raises before any launch: dtypes
+    other than float32 / bfloat16 or mixed among x, b and c, a that is not
+    float32, P over 64 or N over 128."""
+    shape = {"B": 1, "S": 64, "H": 4, "G": 2, "P": 16, "N": 32}
+    shape.update({k: kwargs.pop(k) for k in ("P", "N") if k in kwargs})
+    with pytest.raises(error, match=match):
+        ssd_scan_route(*_meta_ssd(**shape, **kwargs))
 
 
 def test_ssd_scan_single_chunk_and_strided_views():
