@@ -15,7 +15,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      same fleet with multi-hop fail-close relay chains
      (``unsafe_chain_fraction=0.3``), where the fixed point takes more
      than 2 rounds and the round count tests the kernel's double
-     buffering;
+     buffering; it times the whole fixed point (CUDA events) and its
+     device time a round (profiler);
   3. runs the main path, ``SweepEngine(device="cuda").run``, on the
      paper-scale fleet over 65,536 scenarios (16 chunks of 4,096) with
      the dependency and cascade-storm stages, checks that both kernels
@@ -25,8 +26,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      the card, exactly: one 4,000,000-record chunk from the port's
      device sampler over the paper-scale edge universe (120,827 edges),
      every record on one edge, out-of-range ids mixed in (``n_edges``
-     both a multiple of 8 and not), and an empty chunk; it times the
-     kernel, the plain version and ``torch.bincount`` on the same bins;
+     both a multiple of 8 and not) and an empty chunk; it times the
+     kernel (events and profiler), the plain version and
+     ``torch.bincount`` on the same bins;
   5. runs the slice's path, detection to hardening, on the card: the
      paper-scale fleet with fail-close relay chains, ``runtime_analysis``
      (48,330,800 records in 13 chunks), the detection graph,
@@ -72,7 +74,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      with the counts zeroed just before and read just after (the SSD
      kernel once a layer, rmsnorm twice a layer and once more), its time
      by CUDA events, the profiler's top device ops and the SSD kernel's
-     share, the peak device memory, and bf16 decode steps at B 8.
+     share, the peak device memory, and bf16 decode steps at B 8;
+
+then, after every timed path and kernel above (so that those run in the
+state phases 1-7 leave them, whatever the later cases allocate and
+profile):
+
+  2b. holds the ELL propagation kernel, each case exact and on the route
+      its shape names, on the planner's 512-row blast-radius batch as 16
+      row groups converging at different rounds (one never changing),
+      its first 33 rows and first row, a graph whose n is not a multiple
+      of the cluster, every slot closed, a slab that never changes, a
+      graph too wide for a cluster (the rounds route), a graph that only
+      a cluster of 16 CTAs holds, an out-of-range ``ell_dst`` (which
+      must raise), and the host's synchronises of one call (exactly one,
+      under ``set_sync_debug_mode("warn")``);
+  4b. holds the histogram kernel exactly at ``n_edges`` at the buckets
+      route's limit (232,448) and one past it (the global route), on
+      chunks ending inside a tile, views not 16-byte aligned and one
+      record.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
@@ -101,6 +121,7 @@ from __future__ import annotations
 
 import cProfile
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -169,6 +190,10 @@ MODEL_KERNELS = (
      "src/repro/kernels/grouped_matmul.py:49"),
     ("ssd_scan", "ssd_scan", "src/repro/kernels/ssd_scan.py:81"),
 )
+
+
+# sources whose kernels may not spill (the build fails the run)
+NO_SPILL = ("fixed_point_ell", "ingest_hist", "ssd_scan")
 
 
 class SmokeFailure(Exception):
@@ -341,11 +366,16 @@ def phase_propagation(torch, device, graph, dark: np.ndarray) -> dict:
     U, n = dark.shape
     K = consts["ell_dst"].shape[1]
     entry = {"name": "fixed_point_ell", "route": "cuda",
+             "kernel_route": prop.fixed_point_route(U, n, K),
              "source": "src/repro_torch/csrc/fixed_point_ell.cu",
              "replaces": "src/repro/kernels/ufa/propagation.py:115",
-             "max_abs_err": 0.0}
-    # per round: the dark slab and the adjacency read, the new slab written
-    bytes_moved = rounds * (2 * U * n + n * K * 5 + 4)
+             "max_abs_err": 0.0, "cases": []}
+    check(entry["kernel_route"] == "cluster",
+          f"propagation: paper scale takes the {entry['kernel_route']} route")
+    # the function's own bytes, each once: the dark slab and the adjacency
+    # read, broken and [rounds, error] written; the operations are every
+    # round's gather and OR
+    bytes_moved = 2 * U * n + n * K * 5 + 8
     ops = rounds * U * n * K * 2
     entry["bound_by"] = ("bytes" if bytes_moved / MEM_BYTES_PER_S
                          >= ops / F32_OPS_PER_S else "operations")
@@ -357,8 +387,11 @@ def phase_propagation(torch, device, graph, dark: np.ndarray) -> dict:
                                 reps=20)
         entry["plain_ms"] = device_ms(
             torch, lambda: prop.ref_fixed_point(*args), reps=5)
-        # one round alone, launched back to back without the host's read
-        # of the changed flag: the kernel's own time per round
+        dev_ms = profiled_device_ms(torch,
+                                    lambda: prop.fixed_point_ell(*args), 10)
+        # one round of the rounds route alone, launched back to back
+        # without the host's read of the changed flag: its kernel's own
+        # time per round
         cur = dark_d.clone()
         nxt = torch.empty_like(cur)
         flag = torch.zeros(1, dtype=torch.int32, device=device)
@@ -369,19 +402,24 @@ def phase_propagation(torch, device, graph, dark: np.ndarray) -> dict:
                 consts["ell_closed"].data_ptr(), U, n, K, flag.data_ptr(),
                 stream)
         round_ms = device_ms(torch, lambda: launch(*ptrs), reps=200)
-        log(f"propagation: one round {round_ms:.6f} ms; whole fixed point "
-            f"{entry['ms']:.6f} ms over {rounds} rounds = "
-            f"{entry['ms'] / rounds:.6f} ms per round with the host's "
-            f"flag read and synchronise")
+        log(f"propagation: whole fixed point {entry['ms']:.6f} ms over "
+            f"{rounds} rounds, one launch and one synchronise (route "
+            f"{entry['kernel_route']}, {prop.fixed_point_cluster(n, K)} CTAs "
+            f"a cluster); device "
+            f"{fmt_ms(dev_ms)} a call = "
+            f"{fmt_ms(dev_ms and dev_ms / rounds)} a round; one round of "
+            f"the rounds route alone {round_ms:.6f} ms")
+        log_rounds_route(torch, prop, args, rounds, "propagation")
     entry["library_ms"] = None
     return entry
 
 
-def phase_multihop(torch, device, fractions, seed: int) -> None:
+def phase_multihop(torch, device, fractions, seed: int):
     """The paper-scale fleet with fail-close relay chains between
     critical services: breakage climbs several hops, one hop per Jacobi
     round, so an in-place (Gauss-Seidel) kernel would stop in fewer
-    rounds than the plain version.  ``broken`` and ``rounds`` exact."""
+    rounds than the plain version.  ``broken`` and ``rounds`` exact.
+    Returns the relay graph and its device consts."""
     from repro_torch.core.service import synthesize_fleet
     from repro_torch.graph import CallGraph
     from repro_torch.graph.propagation import (edge_consts,
@@ -399,10 +437,220 @@ def phase_multihop(torch, device, fractions, seed: int) -> None:
           "case needs multi-hop chains (more than 2 rounds)")
     if device.type == "cuda":
         args = (dark_d, consts["ell_dst"], consts["ell_closed"])
-        ms = device_ms(torch, lambda: prop.fixed_point_ell(*args), reps=10)
+        ms = device_ms(torch, lambda: prop.fixed_point_ell(*args), reps=20)
+        dev_ms = profiled_device_ms(torch,
+                                    lambda: prop.fixed_point_ell(*args), 10)
         log(f"propagation, relay chains: whole fixed point {ms:.6f} ms over "
-            f"{rounds} rounds = {ms / rounds:.6f} ms per round with the "
-            f"host's flag read and synchronise")
+            f"{rounds} rounds, one launch and one synchronise; device "
+            f"{fmt_ms(dev_ms)} a call = {fmt_ms(dev_ms and dev_ms / rounds)}"
+            " a round")
+        log_rounds_route(torch, prop, args, rounds,
+                         "propagation, relay chains")
+    return graph, consts
+
+
+def log_rounds_route(torch, prop, args, rounds: int, where: str) -> None:
+    """The same fixed point on the rounds route (the first design: a
+    launch and a flag read a round), timed beside the cluster route."""
+    ms = device_ms(torch, lambda: prop._rounds(*args), reps=10)
+    dev_ms = profiled_device_ms(torch, lambda: prop._rounds(*args), 5)
+    log(f"{where}, rounds route on the same inputs: whole fixed point "
+        f"{ms:.6f} ms over {rounds} rounds; device {fmt_ms(dev_ms)} a call "
+        f"= {fmt_ms(dev_ms and dev_ms / rounds)} a round")
+
+
+def row_rounds(torch, consts, dark):
+    """Each row's own round count, as if it were propagated alone: the
+    round after the last one in which it changed (1 if it never does)."""
+    ell_dst, ell_closed = consts["ell_dst"].long(), consts["ell_closed"]
+    broken = dark
+    last = torch.zeros(dark.shape[0], dtype=torch.int64, device=dark.device)
+    for r in range(1, dark.shape[1] + 1):
+        new = broken | (broken[:, ell_dst] & ell_closed[None]).any(dim=2)
+        moved = (new != broken).any(dim=1)
+        if not bool(moved.any()):
+            break
+        last[moved] = r
+        broken = new
+    return (last + 1).cpu().numpy()
+
+
+def hold_cases(torch, device, cases) -> list:
+    """B2's later cases, each exact against the plain version (``broken``
+    and ``rounds``), on the route its shape names.  ``cases``: (label,
+    dark, ell_dst, ell_closed, want route).  Returns the kernels line's
+    case rows."""
+    from repro_torch.kernels.ufa import propagation as prop
+    rows = []
+    for label, dark_d, ell_dst, ell_closed, route in cases:
+        U, n = dark_d.shape
+        K = ell_dst.shape[1]
+        took = prop.fixed_point_route(U, n, K)
+        check(took == route, f"propagation, {label}: the {took} route, want "
+              f"{route}")
+        before = prop.fixed_point_ell.launches
+        got, rounds = prop.fixed_point_ell(dark_d, ell_dst, ell_closed)
+        launches = prop.fixed_point_ell.launches - before
+        want, ref_rounds = prop.ref_fixed_point(dark_d, ell_dst, ell_closed)
+        check(rounds == ref_rounds,
+              f"propagation, {label}: rounds {rounds} != {ref_rounds}")
+        bad = int((got != want).sum())
+        check(bad == 0, f"propagation, {label}: broken differs in {bad} "
+              "entries")
+        check(device.type != "cuda"
+              or launches == (1 if route == "cluster" else rounds),
+              f"propagation, {label}: {launches} launches for {rounds} "
+              f"rounds on the {route} route")
+        ctas = prop.fixed_point_cluster(n, K) if took == "cluster" else 0
+        rows.append({"label": label, "U": U, "n": n, "K": K, "route": took,
+                     "ctas": ctas, "rounds": rounds, "launches": launches})
+        log(f"propagation, {label}: U={U} n={n} K={K} route {took} "
+            f"({ctas} CTAs a cluster) rounds {rounds} launches {launches} "
+            f"broken {int(got.sum())} dark {int(dark_d.sum())}: exact")
+    return rows
+
+
+def phase_propagation_cases(torch, device, graph, relay, consts_relay,
+                            dark_main: np.ndarray, card: str) -> list:
+    """B2 on the shapes the cluster route must get right, each exact: the
+    planner's 512-row blast-radius batch as 16 row groups converging at
+    different rounds (one group that never changes), its first 33 rows
+    and its first row; a graph whose n is not a multiple of the cluster;
+    every slot closed; a slab that never changes; a graph too wide for a
+    cluster (the rounds route); a graph a cluster holds only in 16 CTAs
+    (non-portable); then an out-of-range ``ell_dst``, which raises, and
+    the host's synchronises of one call."""
+    import warnings
+    from repro_torch.graph.propagation import edge_consts
+    from repro_torch.kernels.ufa import propagation as prop
+    rng = np.random.default_rng(22)
+    ell_dst, ell_closed = consts_relay["ell_dst"], consts_relay["ell_closed"]
+    n = relay.n
+    # candidate sources: every fail-close callee, each alone
+    cands = np.unique(relay.dst[~relay.fail_open])[:2048]
+    single = np.zeros((len(cands), n), bool)
+    single[np.arange(len(cands)), cands] = True
+    per_row = row_rounds(torch, consts_relay,
+                         torch.from_numpy(single).to(device))
+    levels = np.unique(per_row[per_row > 1])
+    check(len(levels) >= 3, f"propagation: relay sources converge at only "
+          f"{levels.tolist()} rounds")
+    dark = np.zeros((512, n), bool)
+    for g in range(15):  # group g: one source at its level, 31 at or below
+        level = levels[g % len(levels)]
+        at = cands[per_row == level]
+        below = cands[per_row <= level]
+        pick = np.concatenate([rng.choice(at, 1), rng.choice(below, 31)])
+        dark[32 * g + np.arange(32), pick] = True
+    # group 15 stays empty: it never changes (rounds 1)
+    want_groups = [prop.ref_fixed_point(
+        torch.from_numpy(dark[r0:r0 + 32]).to(device), ell_dst,
+        ell_closed)[1] for r0 in range(0, 512, 32)]
+    check(len(set(want_groups)) > 2 and want_groups[-1] == 1,
+          f"propagation: the 16 groups' rounds {want_groups} must differ")
+    log(f"propagation, U=512: the 16 row groups' own rounds {want_groups}")
+    dark_512 = torch.from_numpy(dark).to(device)
+    # a small graph, n not a multiple of 8 or 16
+    n_small = 1001
+    ed_small = torch.from_numpy(rng.integers(0, n_small, (n_small, 8))
+                                .astype(np.int32)).to(device)
+    ec_small = torch.from_numpy(rng.random((n_small, 8)) < 0.3).to(device)
+    dark_small = torch.from_numpy(rng.random((40, n_small)) < 0.02).to(device)
+    base = edge_consts(graph, device)
+    dark_m = torch.from_numpy(dark_main).to(device)
+    def padded(width):
+        """The paper graph padded with open slots to ``width``."""
+        pad = width - base["ell_dst"].shape[1]
+        return (torch.cat([base["ell_dst"], torch.zeros(
+                    (graph.n, pad), dtype=torch.int32, device=device)], dim=1),
+                torch.cat([base["ell_closed"], torch.zeros(
+                    (graph.n, pad), dtype=torch.bool, device=device)], dim=1))
+
+    # padded until a CTA's share no longer fits its shared memory (K 40 at
+    # paper scale): the rounds route
+    K = wide = base["ell_dst"].shape[1]
+    while prop.fixed_point_route(len(dark_main), graph.n, wide) == "cluster":
+        wide += 8
+    ed_wide, ec_wide = padded(wide)
+    # padded by one step of 8 (K 24): too wide for 8 CTAs, held by 16
+    ed_16, ec_16 = padded(K + 8)
+    cases = [
+        ("U 512, 16 groups (relay chains)", dark_512, ell_dst, ell_closed,
+         "cluster"),
+        ("U 33 (relay chains)", dark_512[:33], ell_dst, ell_closed,
+         "cluster"),
+        ("U 1 (relay chains)", dark_512[:1], ell_dst, ell_closed, "cluster"),
+        ("n 1001, not a multiple of the cluster", dark_small, ed_small,
+         ec_small, "cluster"),
+        ("every slot closed", dark_m, base["ell_dst"],
+         torch.ones_like(base["ell_closed"]), "cluster"),
+        ("a slab that never changes", torch.zeros(
+            (40, graph.n), dtype=torch.bool, device=device), base["ell_dst"],
+         base["ell_closed"], "cluster"),
+        (f"K {wide}, the rounds route", dark_m, ed_wide, ec_wide, "rounds"),
+        (f"K {K + 8}, clusters of 16", dark_m, ed_16, ec_16, "cluster"),
+    ]
+    rows = hold_cases(torch, device, cases)
+    check(rows[7]["ctas"] == 16, f"propagation, K {K + 8}: clusters of "
+          f"{rows[7]['ctas']} CTAs, want 16")
+    check(rows[0]["rounds"] == max(want_groups),
+          "propagation, U=512: rounds is not the largest group's")
+    check(rows[5]["rounds"] == 1, "propagation: a slab that never changes "
+          f"took {rows[5]['rounds']} rounds")
+    if device.type == "cuda":
+        # an out-of-range id raises, from the device's flag, after one
+        # launch
+        bad = base["ell_dst"].clone()
+        bad[graph.n // 2, 0] = graph.n
+        before = prop.fixed_point_ell.launches
+        try:
+            prop.fixed_point_ell(dark_m, bad, base["ell_closed"])
+            check(False, "propagation: an out-of-range ell_dst did not raise")
+        except ValueError:
+            pass
+        check(prop.fixed_point_ell.launches == before + 1,
+              "propagation: the out-of-range check is not the kernel's")
+        rows.append({"label": "ell_dst out of range", "route": "cluster",
+                     "raises": "ValueError", "launches": 1})
+        # the host's cost: one synchronise a call on the cluster route
+        prop.fixed_point_ell(dark_m, base["ell_dst"], base["ell_closed"])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                prop.fixed_point_ell(dark_m, base["ell_dst"],
+                                     base["ell_closed"])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        said = [str(w.message) for w in seen
+                if "called a synchronizing CUDA operation" in str(w.message)]
+        syncs = len(said)
+        check(syncs == 1, f"propagation: {syncs} synchronises a call, want "
+              f"1: {said}")
+        rows.append({"label": "synchronises a call", "syncs": syncs})
+        log(f"propagation: one call makes {syncs} synchronise "
+            "(set_sync_debug_mode('warn'))")
+        # the planner's batch width, timed
+        args = (dark_512, ell_dst, ell_closed)
+        rounds = rows[0]["rounds"]
+        ms = device_ms(torch, lambda: prop.fixed_point_ell(*args), 20)
+        dev_ms = profiled_device_ms(
+            torch, lambda: prop.fixed_point_ell(*args), 10)
+        rows[0].update(ms=ms, device_ms=dev_ms)
+        log(f"propagation, U 512: whole fixed point {ms:.6f} ms over "
+            f"{rounds} rounds (16 groups); device {fmt_ms(dev_ms)} a call = "
+            f"{fmt_ms(dev_ms and dev_ms / rounds)} a round [{card}]")
+        log_rounds_route(torch, prop, args, rounds, "propagation, U 512")
+        args = (dark_m, ed_16, ec_16)
+        ms = device_ms(torch, lambda: prop.fixed_point_ell(*args), 20)
+        dev_ms = profiled_device_ms(
+            torch, lambda: prop.fixed_point_ell(*args), 10)
+        rows[7].update(ms=ms, device_ms=dev_ms)
+        log(f"propagation, K {K + 8}, clusters of 16: whole fixed point "
+            f"{ms:.6f} ms over {rows[7]['rounds']} rounds; device "
+            f"{fmt_ms(dev_ms)} a call [{card}]")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -420,28 +668,43 @@ def detection_fleet():
     return fs
 
 
-def phase_ingest(torch, device, edges) -> dict:
-    """Kernel vs plain version, exact, on a sampled chunk, a one-edge
-    chunk, out-of-range ids and an empty chunk; then the timings."""
+def ingest_chunk(device, edges):
+    """The first sampled 4M-record chunk of the detection fleet."""
     from repro_torch.core import dependency as dep
-    from repro_torch.kernels.ufa import ingest as ing
-    n_edges = edges.n
-    eid, failed, errored = next(dep._iter_trace_chunks(
+    return next(dep._iter_trace_chunks(
         edges, HIST_CHUNK, DETECT_SEED + 1, dep.AMBIENT_CALLEE_FAILURE,
         dep.AMBIENT_CALLER_ERROR, dep.PROPAGATION_PROB,
         chunk_records=HIST_CHUNK, device=device))
 
+
+def hold_ingest(torch, cases: list, e, f, r, n: int, where: str):
+    """B3 against its plain version on one chunk, exactly; the case is
+    appended to ``cases`` with the route its ``n`` takes."""
+    from repro_torch.kernels.ufa import ingest as ing
+    got = ing.ingest_hist(e, f, r, n)
+    want = ing.ref_ingest_hist(e, f, r, n)
+    check(got.dtype == torch.int32 and got.shape == (n, 4),
+          f"{where}: got {got.dtype}{tuple(got.shape)}")
+    bad = int((got != want).sum())
+    check(bad == 0, f"{where}: histogram differs in {bad} bins")
+    kept = int(((e >= 0) & (e < n)).sum())
+    check(int(got.sum()) == kept, f"{where}: counts sum to "
+          f"{int(got.sum())}, want {kept}")
+    cases.append({"label": where, "records": int(e.shape[0]),
+                  "n_edges": n, "route": ing.ingest_hist_route(n)})
+    return got
+
+
+def phase_ingest(torch, device, edges) -> dict:
+    """Kernel vs plain version, exact, on a sampled chunk, a one-edge
+    chunk, out-of-range ids and an empty chunk; then the timings."""
+    from repro_torch.kernels.ufa import ingest as ing
+    n_edges = edges.n
+    eid, failed, errored = ingest_chunk(device, edges)
+    cases = []
+
     def hold(e, n, where):
-        got = ing.ingest_hist(e, failed, errored, n)
-        want = ing.ref_ingest_hist(e, failed, errored, n)
-        check(got.dtype == torch.int32 and got.shape == (n, 4),
-              f"{where}: got {got.dtype}{tuple(got.shape)}")
-        bad = int((got != want).sum())
-        check(bad == 0, f"{where}: histogram differs in {bad} bins")
-        kept = int(((e >= 0) & (e < n)).sum())
-        check(int(got.sum()) == kept, f"{where}: counts sum to "
-              f"{int(got.sum())}, want {kept}")
-        return got
+        return hold_ingest(torch, cases, e, failed, errored, n, where)
 
     hist = hold(eid, n_edges, "ingest, sampled chunk")
     per_edge = hist.sum(dim=1)
@@ -465,9 +728,12 @@ def phase_ingest(torch, device, edges) -> dict:
           "ingest, empty chunk: zeros without a launch")
 
     entry = {"name": "ingest_hist", "route": "cuda",
+             "kernel_route": ing.ingest_hist_route(n_edges),
              "source": "src/repro_torch/csrc/ingest_hist.cu",
              "replaces": "src/repro/kernels/ufa/ingest.py:84",
-             "max_abs_err": 0.0}
+             "max_abs_err": 0.0, "cases": cases}
+    check(entry["kernel_route"] == "buckets",
+          f"ingest: paper scale takes the {entry['kernel_route']} route")
     # each record read once (4 B id, 1 B + 1 B flags), the histogram
     # written once; one add per record
     bytes_moved = HIST_CHUNK * 6 + n_edges * 4 * 4
@@ -493,14 +759,83 @@ def phase_ingest(torch, device, edges) -> dict:
             next(bins), minlength=4 * n_edges), reps=10)
         one_ms = device_ms(torch, lambda: ing.ingest_hist(
             one, failed, errored, n_edges), reps=10)
-        log(f"ingest: kernel {entry['ms']:.6f} ms "
-            f"({HIST_CHUNK / entry['ms'] / 1e6:.3f} G records/s), "
-            f"torch.bincount on the same bins {entry['library_ms']:.6f} ms "
+        by_kernel = profiled_kernels_ms(torch, lambda: ing.ingest_hist(
+            *next(sets), n_edges), reps=10)
+        one_by_kernel = profiled_kernels_ms(torch, lambda: ing.ingest_hist(
+            one, failed, errored, n_edges), reps=10)
+        dev_ms = sum(by_kernel.values()) or None
+        one_dev_ms = sum(one_by_kernel.values()) or None
+        for what, split in (("sampled chunk", by_kernel),
+                            ("one edge", one_by_kernel)):
+            log(f"ingest, {what}: device ms by kernel " + ", ".join(
+                f"{k.split('(')[0]} {v:.6f}" for k, v in split.items()))
+        # the global route (the first design: one global atomic a record)
+        # on the same chunks
+        glob = ing._lib("ingest_hist_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        for what, chunks in (("sampled chunk", data),
+                             ("one edge", [(one, failed, errored)])):
+            pick = itertools.cycle(chunks)
+
+            def global_route():
+                e, f, r = next(pick)
+                out = torch.empty((n_edges, 4), dtype=torch.int32,
+                                  device=device)
+                check(glob(e.data_ptr(), f.data_ptr(), r.data_ptr(),
+                           e.shape[0], n_edges, out.data_ptr(), stream) == 0,
+                      "ingest: the global route failed to launch")
+            log(f"ingest, {what}, global route on the same inputs: "
+                f"{device_ms(torch, global_route, reps=10):.6f} ms (device "
+                f"{fmt_ms(profiled_device_ms(torch, global_route, 5))})")
+        one_lib_ms = device_ms(torch, lambda: torch.bincount(
+            one.long() * 4 + failed.long() * 2 + errored.long(),
+            minlength=4 * n_edges), reps=3)
+        cases[0].update(ms=entry["ms"], device_ms=dev_ms,
+                        library_ms=entry["library_ms"])
+        cases[1].update(ms=one_ms, device_ms=one_dev_ms,
+                        library_ms=one_lib_ms)
+        log(f"ingest: kernel {entry['ms']:.6f} ms (device {fmt_ms(dev_ms)}; "
+            f"{HIST_CHUNK / entry['ms'] / 1e6:.3f} G records/s, route "
+            f"{entry['kernel_route']}), torch.bincount on the same bins "
+            f"{entry['library_ms']:.6f} ms "
             f"(kernel / bincount = {entry['ms'] / entry['library_ms']:.3f}),"
-            f" every record on one edge {one_ms:.6f} ms")
+            f" every record on one edge {one_ms:.6f} ms (device "
+            f"{fmt_ms(one_dev_ms)}; torch.bincount {one_lib_ms:.6f} ms)")
     else:
         entry["library_ms"] = None
     return entry
+
+
+def phase_ingest_cases(torch, device, edges) -> list:
+    """B3's later cases, each exact, on the route its ``n_edges`` names:
+    the buckets route's limit and one past it, ids on both sides of the
+    range, chunks that end inside a tile or a warp's load, views that are
+    not 16-byte aligned, one record."""
+    from repro_torch.kernels.ufa import ingest as ing
+    n_edges = edges.n
+    eid, failed, errored = ingest_chunk(device, edges)
+    cases = []
+    gen = torch.Generator(device=device).manual_seed(DETECT_SEED + 22)
+    n_big = 3_000_001
+    ids = torch.randint(-100, ing.LIMIT + 100, (n_big,), generator=gen,
+                        device=device, dtype=torch.int32)
+    f_big = torch.rand(n_big, generator=gen, device=device) < 0.3
+    r_big = torch.rand(n_big, generator=gen, device=device) < 0.3
+    for n, route in ((ing.LIMIT, "buckets"), (ing.LIMIT + 1, "global")):
+        check(ing.ingest_hist_route(n) == route,
+              f"ingest: n_edges={n} takes the {ing.ingest_hist_route(n)} "
+              f"route, want {route}")
+        hold_ingest(torch, cases, ids, f_big, r_big, n,
+                    f"ingest, n_edges={n} ({route}), ids in [-100, "
+                    f"{ing.LIMIT + 100})")
+    for N in (HIST_CHUNK - 3, 8191, 8193, 100_003, 1):
+        hold_ingest(torch, cases, eid[:N], failed[:N], errored[:N],
+                    n_edges, f"ingest, N={N}")
+    for skip in (1, 3):
+        hold_ingest(torch, cases, eid[skip:], failed[skip:],
+                    errored[skip:], n_edges,
+                    f"ingest, a view {skip} records in")
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -552,7 +887,7 @@ def phase_harden(torch, device, fs, card: str) -> dict:
 
     # the path, counts zeroed just before and read just after
     ingest_hist.launches = 0
-    fixed_point_ell.launches = 0
+    fixed_point_ell.launches = fixed_point_ell.rounds = 0
     sync()
     t0 = time.perf_counter()
     ra = dep.runtime_analysis(fs, seed=DETECT_SEED, device=device)
@@ -572,6 +907,7 @@ def phase_harden(torch, device, fs, card: str) -> dict:
     t4 = time.perf_counter()
     launches = {"ingest_hist": ingest_hist.launches,
                 "fixed_point_ell": fixed_point_ell.launches}
+    prop_rounds = fixed_point_ell.rounds
     check(launches["ingest_hist"] > 0, "detection launched no ingest_hist")
     check(launches["fixed_point_ell"] > 0,
           "certify/plan/gate launched no fixed_point_ell")
@@ -591,7 +927,8 @@ def phase_harden(torch, device, fs, card: str) -> dict:
           "the gate passed a planted critical -> preemptible edge")
     check(gate_self.ok, "the hardened graph fails its own gate")
     log(f"harden path launches: ingest_hist {launches['ingest_hist']}, "
-        f"fixed_point_ell {launches['fixed_point_ell']} (one per round)")
+        f"fixed_point_ell {launches['fixed_point_ell']} (one per fixed point "
+        f"on the cluster route) over {prop_rounds} rounds")
     log(f"detection: {n_rec} records over {len(det.calls)} edges, found "
         f"{len(ra['found'])} of {len(ra['truth'])} unsafe "
         f"(recall {ra['recall']:.4f}, missed {ra['missed']}, all cold), "
@@ -647,14 +984,16 @@ def phase_harden(torch, device, fs, card: str) -> dict:
     if device.type == "cuda":
         for _ in range(2):
             sync()
-            t0 = time.perf_counter()
-            warm = dep.runtime_analysis(fs, seed=DETECT_SEED, device=device)
-            wall = time.perf_counter() - t0
+            with GcTime() as gct:
+                t0 = time.perf_counter()
+                warm = dep.runtime_analysis(fs, seed=DETECT_SEED,
+                                            device=device)
+                wall = time.perf_counter() - t0
             check(warm["found"] == ra["found"], "warm run found other edges")
             log(f"runtime_analysis warm: {wall:.4f} s "
                 f"({n_rec / wall:.1f} records/s end to end; gen+ingest "
                 f"{warm['gen_ingest_s']:.4f} s, {warm['records_per_s']:.1f} "
-                f"records/s) [{card}]")
+                f"records/s; {gct}) [{card}]")
         detect = host_ms(torch, device, det.detect_mask, reps=5)
         cert_ms = host_ms(torch, device,
                           lambda: certify(graph, device=device), reps=5)
@@ -716,6 +1055,32 @@ def profile_run(what: str, torch, fn, card: str) -> dict:
     return kernels_us
 
 
+class GcTime:
+    """Seconds the cyclic garbage collector runs, and its full
+    collections, inside a ``with`` block: the share of a timed host run
+    spent freeing garbage, some of it left by earlier code (a profiler
+    trace's events form reference cycles)."""
+
+    def __enter__(self):
+        self.s, self.full, self._t0 = 0.0, 0, None
+        gc.callbacks.append(self._seen)
+        return self
+
+    def _seen(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.s += time.perf_counter() - self._t0
+            self.full += info["generation"] == 2
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._seen)
+
+    def __str__(self):
+        return f"gc {self.s:.4f} s, {self.full} full"
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the model kernels behind repro_torch.kernels.ops
 # ---------------------------------------------------------------------------
@@ -726,6 +1091,14 @@ def profiled_device_ms(torch, fn, reps: int):
     profiler: the kernels' own time, without the host's gaps between
     calls (which CUDA events around back-to-back calls include).  None
     when the trace holds no device time (not measured)."""
+    us = sum(profiled_kernels_ms(torch, fn, reps).values())
+    return us if us > 0 else None
+
+
+def profiled_kernels_ms(torch, fn, reps: int) -> dict:
+    """Device milliseconds a call of ``fn`` spends in each kernel (and
+    copy or memset), by name, from the profiler; empty when the trace
+    holds no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -733,9 +1106,10 @@ def profiled_device_ms(torch, fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA"))
-    return us / reps / 1e3 if us > 0 else None
+    return {e.key: e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0}
 
 
 def model_limit(torch, op: str, dtype, want):
@@ -1412,8 +1786,8 @@ def setup(torch):
                 entry = line.split("'")[1] if "'" in line else line.strip()
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {name} {entry}: {line.strip()}")
-                # B8's ssd_* kernels are held to no spills at all
-                check(name != "ssd_scan" or "spill" not in line
+                # B2's, B3's and B8's kernels are held to no spills
+                check(name not in NO_SPILL or "spill" not in line
                       or ("0 bytes spill stores" in line
                           and "0 bytes spill loads" in line),
                       f"ptxas {name} {entry}: spills ({line.strip()})")
@@ -1465,16 +1839,16 @@ def main() -> int:
         storm_seed=eng.storm_seed)
     dark = np.concatenate([dark_u, graph.preemptible[None, :]])
     k_prop = phase_propagation(torch, device, graph, dark)
-    phase_multihop(torch, device, np.arange(1, 9) / 8.0, seed=3)
+    relay, consts_relay = phase_multihop(torch, device,
+                                         np.arange(1, 9) / 8.0, seed=3)
     log(f"phase 2 ok: fixed_point_ell kernel == plain (one-hop and relay "
-        f"chains), "
-        f"{k_prop['ms']:.6f} ms, plain {k_prop['plain_ms']:.6f} ms, "
-        f"bound {k_prop['bound_ms']:.6f} ms [{card}]")
+        f"chains), {k_prop['ms']:.6f} ms, plain {k_prop['plain_ms']:.6f} ms,"
+        f" bound {k_prop['bound_ms']:.6f} ms [{card}]")
 
     # phase 3: the main path, counts zeroed just before, read just after
     n = SCENARIOS
     timeline_reduce.launches = 0
-    fixed_point_ell.launches = 0
+    fixed_point_ell.launches = fixed_point_ell.rounds = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = eng.run(grid)
@@ -1484,20 +1858,24 @@ def main() -> int:
     check(k_reduce["launches"] > 0, "main path launched no timeline_reduce")
     check(k_prop["launches"] > 0, "main path launched no fixed_point_ell")
     log(f"main path launches: timeline_reduce {k_reduce['launches']}, "
-        f"fixed_point_ell {k_prop['launches']} (one per round)")
+        f"fixed_point_ell {k_prop['launches']} (one per fixed point on the "
+        f"cluster route) over {fixed_point_ell.rounds} rounds")
     check_outputs(res, n, grid)
-    warm = []
+    warm, warm_gc = [], []
     for _ in range(WARM_RUNS):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = eng.run(grid)
-        warm.append(time.perf_counter() - t0)
+        with GcTime() as gct:
+            t0 = time.perf_counter()
+            again = eng.run(grid)
+            warm.append(time.perf_counter() - t0)
+        warm_gc.append(str(gct))
     for k in res:
         check(np.array_equal(res[k], again[k], equal_nan=True),
               f"main: {k} differs between runs")
     log(f"main path {n} scenarios: cold {cold:.4f} s "
         f"({n / cold:.1f} scen/s), warm "
-        + ", ".join(f"{w:.4f} s ({n / w:.1f} scen/s)" for w in warm)
+        + ", ".join(f"{w:.4f} s ({n / w:.1f} scen/s; {g})"
+                    for w, g in zip(warm, warm_gc))
         + f" [{card}]")
 
     # the first chunk against the port's own CPU run, at the two grades
@@ -1563,10 +1941,21 @@ def main() -> int:
         f"{json.dumps({k: model[k] for k in ('prefill', 'decode')})} "
         f"[{card}]")
 
+    # phases 2b and 4b: B2's and B3's later cases, run after every timed
+    # path and kernel above, so those run in the state the earlier phases
+    # leave them
+    k_prop["cases"] = phase_propagation_cases(torch, device, graph, relay,
+                                              consts_relay, dark, card)
+    log(f"phase 2b ok: fixed_point_ell == plain in "
+        f"{len(k_prop['cases'])} later cases [{card}]")
+    k_ingest["cases"] += phase_ingest_cases(torch, device, edges)
+    log(f"phase 4b ok: ingest_hist == plain in {len(k_ingest['cases'])} "
+        f"cases [{card}]")
+
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_by_path", "cases")
+            "library_ms", "kernel_route", "launches_by_path", "cases")
     log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                 for e in kernels]}))
     dev = describe_device(device)

@@ -1,12 +1,16 @@
 // PTX wrappers of Hopper's asynchronous machinery (sm_90a): mbarriers,
 // TMA tensor loads, wgmma with its shared-memory descriptors, and
-// setmaxnreg; and the host-side encoding of a TMA tensor map.  Used by
-// the grouped matmul's wgmma kernel and the bf16 decode attention kernel;
-// written so that later tensor-core kernels (flash attention, the SSD
-// scan) can take them as they are.
+// setmaxnreg; thread-block clusters with their distributed shared memory
+// (DSMEM) and cluster barrier; and on the host, the encoding of a TMA
+// tensor map and the launch of a cluster grid.  Used by the grouped
+// matmul's wgmma kernel, the bf16 decode attention kernel, the ELL fixed
+// point's cluster route and the histogram's DSMEM route.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (header only: no -lcuda)
+
+#include <mutex>
+#include <vector>
 
 #include "common.cuh"
 
@@ -255,4 +259,177 @@ static int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0,
   const uint64_t strides[2] = {n0 * 2, n0 * n1 * 2};
   const uint32_t box[3] = {b0, b1, 1};
   return encode_bf16<3>(map, base, dims, strides, box);
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters and distributed shared memory (DSMEM)
+// ---------------------------------------------------------------------------
+
+// this CTA's rank in its cluster, and the cluster's size in CTAs
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the cluster barrier, split: every thread of every CTA of the cluster
+// arrives (release: its earlier shared-memory writes, local and remote,
+// become visible to the cluster) and then waits (acquire) until all have
+// arrived.  Called by all threads of the CTA, in converged code.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the shared::cluster address of `local` (this CTA's shared memory) in
+// the CTA of rank `rank`: every CTA of a kernel lays its shared memory
+// out alike, so the same variable sits at the same offset in each
+__device__ __forceinline__ uint32_t dsmem_map(const void* local,
+                                              uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(local)), "r"(rank));
+  return a;
+}
+
+// 32-bit load, 16-byte load, 32-bit store and add at a shared::cluster
+// address (any CTA of the cluster, this one included; the 16-byte load's
+// address 16-byte aligned)
+__device__ __forceinline__ uint32_t dsmem_ld(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int4 dsmem_ld4(uint32_t addr) {
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void dsmem_st(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void dsmem_add(uint32_t addr, uint32_t v) {
+  asm volatile("red.shared::cluster.add.u32 [%0], %1;\n" ::"r"(addr),
+               "r"(v)
+               : "memory");
+}
+
+// host: the opt-in shared memory of one CTA on sm_90 (227 KB), what the
+// routes that keep state in shared memory are sized against
+#define SMEM_OPTIN_BYTES 232448
+
+// host: make `kernel` launchable in clusters of `cluster` CTAs (sizes
+// above 8 are non-portable and must be allowed per kernel) with up to
+// SMEM_OPTIN_BYTES of dynamic shared memory, and return in *fit how many
+// such clusters of `threads`-thread CTAs with `smem` bytes each the
+// device holds at once (cudaOccupancyMaxActiveClusters).  The answer is
+// cached per (kernel, device, cluster, threads, smem).  Returns 0 or a
+// cudaError_t; *fit == 0 means the cluster cannot be placed at all.
+template <typename Kernel>
+static int cluster_fit(Kernel kernel, unsigned cluster, unsigned threads,
+                       size_t smem, cudaStream_t s, int* fit) {
+  struct Entry {
+    const void* fn;
+    int dev;
+    unsigned cluster, threads;
+    size_t smem;
+    int fit;
+  };
+  static std::mutex lock;
+  static std::vector<Entry> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  {
+    std::lock_guard<std::mutex> g(lock);
+    for (const Entry& e : cache)
+      if (e.fn == fn && e.dev == dev && e.cluster == cluster &&
+          e.threads == threads && e.smem == smem) {
+        *fit = e.fit;
+        return 0;
+      }
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_OPTIN_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  *fit = n;
+  std::lock_guard<std::mutex> g(lock);
+  if (cache.size() < 64) cache.push_back({fn, dev, cluster, threads, smem, n});
+  return 0;
+}
+
+// host: launch `kernel` on `grid` (grid.x a multiple of `cluster`) in
+// clusters of `cluster` CTAs along x, after cluster_fit says one fits.
+// Returns 0 or a cudaError_t (cudaErrorInvalidConfiguration when no
+// cluster fits); never falls back to another launch.
+template <typename... Params, typename... Args>
+static int launch_cluster(void (*kernel)(Params...), dim3 grid,
+                          unsigned cluster, unsigned threads, size_t smem,
+                          cudaStream_t s, Args... args) {
+  int fit = 0;
+  const int rc = cluster_fit(kernel, cluster, threads, smem, s, &fit);
+  if (rc != 0) return rc;
+  if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -41,6 +41,11 @@ def describe_device(device) -> dict:
     return {"platform": "cpu", "kind": "cpu", "count": 1}
 
 
+# one CTA's opt-in shared memory on sm_90 (SMEM_OPTIN_BYTES in
+# csrc/hopper.cuh): what the routes that keep state in shared memory are
+# sized against
+SMEM_OPTIN = 232_448
+
 # dtype codes of the model kernels' C entry points (csrc/common.cuh)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -79,8 +84,13 @@ def rows_aligned(t: torch.Tensor) -> bool:
 
 def launch(who: str, fn, *args, device: torch.device) -> None:
     """Call a C entry point with the device's current stream appended;
-    raise on the ``cudaError_t`` it returns."""
-    with torch.cuda.device(device):
+    raise on the ``cudaError_t`` it returns.  The device is made current
+    for the call only when it is not already (the usual case skips the
+    switch's host time)."""
+    if device.index is None or device.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{who} kernel launch failed: cudaError {rc}")

@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.ufa import ingest as ref_ing  # noqa: E402
 from repro.kernels.ufa import propagation as ref_prop  # noqa: E402
 from repro.kernels.ufa import reduce as ref_red  # noqa: E402
+from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.kernels.ufa import ingest as port_ing  # noqa: E402
 from repro_torch.kernels.ufa import propagation as port_prop  # noqa: E402
 from repro_torch.kernels.ufa import reduce as port_red  # noqa: E402
@@ -309,3 +310,230 @@ def test_ingest_hist_cpu_launches_no_kernel():
     eid, failed, errored = _records(np.random.default_rng(3), 100, 9)
     _port_hist(eid, failed, errored, 9)
     assert port_ing.ingest_hist.launches == before
+
+
+# ---------------------------------------------------------------------------
+# B2 and B3 routes, and the wrappers' checks on meta tensors
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("U,n,K,cluster,route", [
+    (8, 21_979, 16, 8, "cluster"),        # paper scale, the sweep's batch
+    (512, 21_979, 16, 8, "cluster"),      # the planner's blast-radius batch
+    (1, 25_120, 16, 8, "cluster"),        # the last n 8 CTAs hold at K 16
+    (1, 25_121, 16, 16, "cluster"),       # ... one past it: 16 CTAs
+    (1, 50_240, 16, 16, "cluster"),       # the last n 16 CTAs hold
+    (1, 50_241, 16, 0, "rounds"),         # ... one past it
+    (8, 21_979, 18, 8, "cluster"),        # the widest K 8 CTAs hold at n
+    (8, 21_979, 19, 16, "cluster"),       # 21,979 ...
+    (8, 21_979, 39, 16, "cluster"),       # ... and 16 CTAs
+    (8, 21_979, 40, 0, "rounds"),
+    (32 * 65_535, 100, 8, 8, "cluster"),  # the most groups one launch takes
+    (32 * 65_535 + 1, 100, 8, 8, "rounds"),
+])
+def test_fixed_point_route(U, n, K, cluster, route):
+    """The cluster route while a CTA holds its callers' words and all K
+    slots in its opt-in shared memory (8 CTAs first, 16 only where 8 do
+    not fit) and the row groups fit one grid; the rounds route past
+    either limit."""
+    assert port_prop.fixed_point_cluster(n, K) == cluster
+    assert port_prop.fixed_point_route(U, n, K) == route
+    if cluster:
+        assert port_prop.cluster_smem(n, K, cluster) <= backend.SMEM_OPTIN
+    for C in port_prop.CLUSTER_SIZES:
+        if C < cluster or not cluster:
+            assert port_prop.cluster_smem(n, K, C) > backend.SMEM_OPTIN
+
+
+def test_fixed_point_cluster_smem_at_paper_scale():
+    # 2,748 callers a CTA: flags 16 B, words 2 x 4 B, 16 slot addresses
+    # x 4 B and a 2-byte count a caller
+    assert port_prop.cluster_smem(21_979, 16, 8) == 16 + 2_748 * 74
+    assert port_prop.cluster_smem(21_979, 16, 8) == 203_368
+
+
+@pytest.mark.parametrize("n_edges,route", [
+    (120_827, "buckets"),  # paper scale: 7,552 edges, 120,832 B a range
+    (232_448, "buckets"),  # the last universe a CTA holds a sixteenth of
+    (232_449, "global"),   # ... one past it
+    (1, "buckets"),
+    (2 ** 31 - 1, "global"),
+])
+def test_ingest_hist_route(n_edges, route):
+    assert port_ing.ingest_hist_route(n_edges) == route
+    assert (port_ing.range_bytes(n_edges) <= backend.SMEM_OPTIN) == (
+        route == "buckets")
+
+
+def test_routes_refuse_negative_shapes():
+    with pytest.raises(ValueError):
+        port_prop.fixed_point_route(-1, 10, 8)
+    with pytest.raises(ValueError):
+        port_ing.ingest_hist_route(-1)
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("args,error,match", [
+    ((_meta((4, 50), torch.uint8), _meta((50, 8), torch.int32),
+      _meta((50, 8), torch.bool)), TypeError, "dark bool"),
+    ((_meta((4, 50), torch.bool), _meta((50, 8), torch.int64),
+      _meta((50, 8), torch.bool)), TypeError, "ell_dst int32"),
+    ((_meta((4, 50), torch.bool), _meta((50, 8), torch.int32),
+      _meta((50, 8), torch.uint8)), TypeError, "ell_closed bool"),
+    ((_meta((4, 50), torch.bool), _meta((49, 8), torch.int32),
+      _meta((49, 8), torch.bool)), ValueError, r"\(n, K\)"),
+    ((_meta((4, 50), torch.bool), _meta((50, 8), torch.int32),
+      _meta((50, 7), torch.bool)), ValueError, r"\(n, K\)"),
+    ((_meta((200,), torch.bool), _meta((50, 8), torch.int32),
+      _meta((50, 8), torch.bool)), ValueError, r"\(S, n\)"),
+    ((_meta((4, 50), torch.bool), _meta((50, 8), torch.int32),
+      _meta((50, 8), torch.bool)), ValueError, "no kernel for meta"),
+])
+def test_fixed_point_ell_checks_meta(args, error, match):
+    """Off the CPU the wrapper checks dtype and shape before anything
+    else, and refuses a device without a kernel: nothing launches."""
+    before = port_prop.fixed_point_ell.launches
+    with pytest.raises(error, match=match):
+        port_prop.fixed_point_ell(*args)
+    assert port_prop.fixed_point_ell.launches == before
+
+
+@pytest.mark.parametrize("args,error,match", [
+    ((_meta((100,), torch.int64), _meta((100,), torch.bool),
+      _meta((100,), torch.bool), 10), TypeError, "edge_id int32"),
+    ((_meta((100,), torch.int32), _meta((100,), torch.uint8),
+      _meta((100,), torch.bool), 10), TypeError, "edge_id int32"),
+    ((_meta((100,), torch.int32), _meta((100,), torch.bool),
+      _meta((100,), torch.int32), 10), TypeError, "edge_id int32"),
+    ((_meta((100,), torch.int32), _meta((99,), torch.bool),
+      _meta((100,), torch.bool), 10), ValueError, r"three \(N,\)"),
+    ((_meta((10, 10), torch.int32), _meta((100,), torch.bool),
+      _meta((100,), torch.bool), 10), ValueError, r"three \(N,\)"),
+    ((_meta((100,), torch.int32), _meta((100,), torch.bool),
+      _meta((100,), torch.bool), -1), ValueError, "n_edges=-1"),
+    ((_meta((100,), torch.int32), _meta((100,), torch.bool),
+      _meta((100,), torch.bool), 2 ** 31), ValueError, "out of range"),
+    ((_meta((100,), torch.int32), _meta((100,), torch.bool),
+      _meta((100,), torch.bool), 232_449), ValueError, "no kernel for meta"),
+    ((_meta((100,), torch.int32), _meta((100,), torch.bool),
+      _meta((100,), torch.bool), 10), ValueError, "no kernel for meta"),
+])
+def test_ingest_hist_checks_meta(args, error, match):
+    before = port_ing.ingest_hist.launches
+    with pytest.raises(error, match=match):
+        port_ing.ingest_hist(*args)
+    assert port_ing.ingest_hist.launches == before
+
+
+# ---------------------------------------------------------------------------
+# B2's cluster route: 32-row groups, callers split over a cluster's CTAs
+# ---------------------------------------------------------------------------
+
+CHAINS = (2, 5, 9, 14)      # fail-close relay chains of these many hops
+
+
+def _relay_graph(seed, n=120):
+    """Random cyclic edges (a third fail-close) plus fail-close relay
+    chains of CHAINS hops over services of their own: darkening a chain's
+    tail breaks one more service a round up to its head."""
+    rng = np.random.default_rng(seed)
+    heads, chain_edges, base = [], [], n
+    for hops in CHAINS:
+        ids = np.arange(base, base + hops + 1)
+        chain_edges += [(int(ids[i + 1]), int(ids[i]))
+                        for i in range(hops)]         # caller -> callee
+        heads.append(int(ids[0]))
+        base += hops + 1
+    total = base
+    m = rng.random((n, n)) < 0.04
+    np.fill_diagonal(m, False)
+    src, dst = np.nonzero(m)
+    closed = rng.random(len(src)) < 0.33
+    src = np.concatenate([src, [e[0] for e in chain_edges]])
+    dst = np.concatenate([dst, [e[1] for e in chain_edges]])
+    closed = np.concatenate([closed, np.ones(len(chain_edges), bool)])
+    order = np.argsort(src, kind="stable")
+    src, dst, closed = src[order], dst[order], closed[order]
+    indptr = np.searchsorted(src, np.arange(total + 1)).astype(np.int64)
+    return total, indptr, dst.astype(np.int32), closed, heads
+
+
+def _relay_dark(rng, U, total, heads):
+    """Row r darkens chain (r // 32 + r) % 4's tail, so that each 32-row
+    group holds another mix of chains, plus a few random services."""
+    dark = rng.random((U, total)) < 0.01
+    for r in range(U):
+        dark[r, heads[(r // 32 + r) % len(heads)]] = True
+    return dark
+
+
+def _cluster_emulation(dark, ell_dst, ell_closed, C=8):
+    """What csrc/fixed_point_ell.cu's cluster route computes, in numpy:
+    32 rows a uint32 word; C CTAs each owning ceil(n / C) callers and a
+    compacted list of their closed slots; Jacobi rounds of gathered words
+    until no CTA's words change or n + 1 rounds ran; a caller whose word
+    is already full skips its gather.  Returns (broken, rounds, the
+    groups' rounds)."""
+    U, n = dark.shape
+    m = -(-n // C)
+    broken = np.zeros_like(dark)
+    group_rounds = []
+    for row0 in range(0, U, 32):
+        rows = min(32, U - row0)
+        full = np.uint32((1 << rows) - 1)
+        bits = dark[row0:row0 + rows].astype(np.uint32)
+        cur = (bits << np.arange(rows, dtype=np.uint32)[:, None]).sum(
+            axis=0, dtype=np.uint32)
+        slots = [[ell_dst[u][ell_closed[u]] for u in range(r * m,
+                                                          min(n, (r + 1) * m))]
+                 for r in range(C)]
+        rounds, go = 0, True
+        while go:
+            nxt = cur.copy()
+            changed = False
+            for r in range(C):
+                for i, callees in enumerate(slots[r]):
+                    u = r * m + i
+                    if cur[u] != full and len(callees):
+                        nxt[u] = cur[u] | np.bitwise_or.reduce(cur[callees])
+                    changed |= bool(nxt[u] != cur[u])
+            cur, rounds = nxt, rounds + 1
+            go = changed and rounds < n + 1
+        group_rounds.append(rounds)
+        broken[row0:row0 + rows] = (cur[None, :] >> np.arange(
+            rows, dtype=np.uint32)[:, None]) & 1
+    return broken, max(group_rounds), group_rounds
+
+
+@pytest.mark.parametrize("U", [1, 7, 32, 33, 100])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fixed_point_row_groups(U, seed):
+    """The decomposition the cluster route rests on, on graphs whose relay
+    chains converge at different rounds in different 32-row groups: each
+    group's fixed point side by side is the slab's ``broken``, the
+    largest group's round count is the slab's ``rounds`` (against
+    ``ref_fixed_point`` and the reference's Pallas kernel in interpret
+    mode), and the bit-sliced, cluster-split emulation of the kernel
+    gives both, with C 8 and 16 CTAs (n not a multiple of either)."""
+    rng = np.random.default_rng(100 + seed)
+    total, indptr, dst, closed, heads = _relay_graph(seed)
+    ell_dst, ell_closed, _ = port_prop.ell_from_csr(total, indptr, dst,
+                                                    closed)
+    dark = _relay_dark(rng, U, total, heads)
+    (rb, rr), (gb, gr) = _both(dark, ell_dst, ell_closed)
+    assert np.array_equal(gb, rb) and gr == rr
+    groups = [port_prop.ref_fixed_point(
+        torch.from_numpy(dark[r0:r0 + 32]), torch.from_numpy(ell_dst),
+        torch.from_numpy(ell_closed)) for r0 in range(0, U, 32)]
+    assert np.array_equal(np.concatenate([b.numpy() for b, _ in groups]), gb)
+    assert max(r for _, r in groups) == gr
+    if U > 32:
+        assert len({r for _, r in groups}) > 1, "groups converge together"
+    for C in (8, 16):
+        assert total % C
+        eb, er, per_group = _cluster_emulation(dark, ell_dst, ell_closed, C)
+        assert np.array_equal(eb, gb) and er == gr
+        assert per_group == [r for _, r in groups]
