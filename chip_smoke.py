@@ -9,6 +9,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
   1. holds the timeline verdict-reduction kernel against its plain
      PyTorch version on the card, at the main path's chunk shape
      (4,096 scenarios x 240 steps x 7 tiers), with crossing edge cases;
+     it times the kernel (CUDA events over 60 calls, profiler device
+     time), the wrapper's host time a call (200 calls, not synchronised)
+     and the plain version on the same three input sets;
   2. holds the ELL propagation kernel against its plain version on the
      card, on the paper-scale call graph (21,979 services) and the main
      path's dark sets plus the all-preemptible worst case, and on the
@@ -21,7 +24,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
      paper-scale fleet over 65,536 scenarios (16 chunks of 4,096) with
      the dependency and cascade-storm stages, checks that both kernels
      were launched in that run, holds the first 4,096 scenarios against
-     the port's own CPU run, and times cold and warm runs;
+     the port's own CPU run, times cold and warm runs, and profiles one warm run (the
+     timeline reduction's device time a chunk by kernel name);
   4. holds the telemetry histogram kernel against its plain version on
      the card, exactly: one 4,000,000-record chunk from the port's
      device sampler over the paper-scale edge universe (120,827 edges),
@@ -80,6 +84,10 @@ then, after every timed path and kernel above (so that those run in the
 state phases 1-7 leave them, whatever the later cases allocate and
 profile):
 
+  1b. holds the timeline verdict-reduction kernel, each case exact, at
+      4,099 rows (a part-filled block), 1 and 3 rows, T 1, 33 and 241,
+      R 1 and 8, and on inputs whose bases lie 4 bytes past their
+      allocations;
   2b. holds the ELL propagation kernel, each case exact and on the route
       its shape names, on the planner's 512-row blast-radius batch as 16
       row groups converging at different rounds (one never changing),
@@ -155,6 +163,7 @@ WARM_RUNS = 3
 RELAY_CHAIN_FRACTION = 0.3  # multi-hop case of phase 2
 HIST_CHUNK = 4_000_000      # one chunk of the detector's stream (phase 4)
 DETECT_SEED = 7             # the fleet and stream seed of phases 4 and 5
+REDUCE_CASES_SEED = 23      # phase 1b's inputs, one seed a case from here
 MODEL_SEED = 15             # the random inputs of phase 6
 MODEL7_SEED = 16            # phase 7's weights and tokens
 MODEL7_TOL = 1e-4           # phase 7a, card vs CPU: tests/test_torch_models
@@ -193,7 +202,7 @@ MODEL_KERNELS = (
 
 
 # sources whose kernels may not spill (the build fails the run)
-NO_SPILL = ("fixed_point_ell", "ingest_hist", "ssd_scan")
+NO_SPILL = ("timeline_reduce", "fixed_point_ell", "ingest_hist", "ssd_scan")
 
 
 class SmokeFailure(Exception):
@@ -252,13 +261,13 @@ def compare(got: dict, want: dict, rtol_for: dict, where: str) -> float:
               and np.array_equal(g[~fin], w[~fin]),
               f"{where}: {k} non-finite entries differ")
         d = np.abs(g[fin].astype(np.float64) - w[fin].astype(np.float64))
-        if d.size:
-            worst = max(worst, float(d.max()))
+        here = float(d.max()) if d.size else 0.0
+        worst = max(worst, here)
         rtol = rtol_for.get(k, 0.0)
         lim = rtol * np.abs(w[fin].astype(np.float64))
         over = int(np.count_nonzero(d > lim))
         check(over == 0, f"{where}: {k} differs beyond rtol={rtol} in "
-              f"{over} entries (max abs {d.max():.3g})")
+              f"{over} entries (max abs {here:.3g})")
     return worst
 
 
@@ -268,24 +277,47 @@ def compare(got: dict, want: dict, rtol_for: dict, where: str) -> float:
 
 
 def reduce_inputs(seed: int, S: int, T: int, R: int):
-    """Engine-like series from a seed, with hand-set crossing rows."""
+    """Engine-like series from a seed, with hand-set crossing rows where
+    the shape has room for them."""
     rng = np.random.default_rng(seed)
     avail = (0.999 + 0.001 * rng.random((S, T))).astype(np.float32)
     util = (rng.random((S, T)) * 1.2).astype(np.float32)
     cloud = (rng.random((S, T)) * 2e4 - 1e3).astype(np.float32)
     frac = (0.996 + 0.006 * rng.random((S, T, R))).astype(np.float32)
     frac[0] = 1.0                        # never below
-    frac[1, 0] = 0.5                     # below at t=0, back at t=1
-    frac[1, 1:] = 1.0
-    frac[2, T // 2:, 0] = 0.5            # below from the middle to the end
-    frac[2, :T // 2, 0] = 1.0
-    frac[3, :, 1] = 1.0
-    frac[3, -1, 1] = 0.5                 # below at the last step only
-    frac[4, :40, 2] = 1.0                # crossing across a 32-step window
-    frac[4, 30:33, 2] = 0.5
-    frac[4, 33:, 2] = 1.0
+    if S > 1:
+        frac[1, 0] = 0.5                 # below at t=0, back at t=1
+        frac[1, 1:] = 1.0
+    if S > 2:
+        frac[2, T // 2:, 0] = 0.5        # below from the middle to the end
+        frac[2, :T // 2, 0] = 1.0
+    if S > 3 and R > 1:
+        frac[3, :, 1] = 1.0
+        frac[3, -1, 1] = 0.5             # below at the last step only
+    if S > 4 and R > 2 and T >= 40:
+        frac[4, :40, 2] = 1.0            # crossing across a 32-step window
+        frac[4, 30:33, 2] = 0.5
+        frac[4, 33:, 2] = 1.0
     ts = (np.arange(T) * (7200.0 / T)).astype(np.float32)
     return avail, util, cloud, frac, ts
+
+
+def hold_reduce(torch, args, where: str) -> tuple:
+    """B1 against its plain version on the card: the five selected
+    outputs exact, avail_int within AVAIL_INT_RTOL.  Returns the host
+    results, the largest absolute error and the case's record."""
+    from repro_torch.kernels.ufa import reduce as red
+    S, T = args[0].shape
+    R = args[3].shape[2]
+    got = red.timeline_reduce(*args, thresh=THRESH)
+    want = red.ref_timeline_reduce(*args, thresh=THRESH)
+    if args[0].is_cuda:
+        torch.cuda.synchronize()
+    to_np = lambda d: {k: v.cpu().numpy() for k, v in d.items()}
+    got, want = to_np(got), to_np(want)
+    err = compare(got, want, {"avail_int": AVAIL_INT_RTOL}, where)
+    return got, err, {"label": where, "S": S, "T": T, "R": R,
+                      "max_abs_err": err}
 
 
 def phase_reduce(torch, device) -> dict:
@@ -293,40 +325,82 @@ def phase_reduce(torch, device) -> dict:
     S, T, R = REDUCE_SHAPE
     host = reduce_inputs(12, S, T, R)
     args = [torch.from_numpy(a).to(device) for a in host]
-    got = red.timeline_reduce(*args, thresh=THRESH)
-    want = red.ref_timeline_reduce(*args, thresh=THRESH)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    to_np = lambda d: {k: v.cpu().numpy() for k, v in d.items()}
-    got, want = to_np(got), to_np(want)
-    err = compare(got, want, {"avail_int": AVAIL_INT_RTOL}, "reduce")
+    got, err, case = hold_reduce(torch, args, "reduce")
     check(np.isinf(got["restore_t"][0]).all() and not got["below_seen"][0].any(),
           "reduce: never-below row")
     check((got["restore_t"][1] == host[4][1]).all(), "reduce: t=0 crossing")
-    check(got["below_seen"][2, 0] and np.isinf(got["restore_t"][2, 0]),
+    check(np.isinf(got["restore_t"][2, 0]) and got["below_seen"][2, 0],
           "reduce: never-restored tier")
     check(got["restore_t"][4, 2] == host[4][33], "reduce: window crossing")
     entry = {"name": "timeline_reduce", "route": "cuda",
              "source": "src/repro_torch/csrc/timeline_reduce.cu",
              "replaces": "src/repro/kernels/ufa/reduce.py:79",
-             "max_abs_err": err}
+             "max_abs_err": err, "cases": [case]}
     bytes_moved = (3 * S * T + S * T * R + T) * 4 + S * (4 * 4 + R * 5)
     ops = S * T * (5 + 2 * R)
     entry["bound_by"] = ("bytes" if bytes_moved / MEM_BYTES_PER_S
                          >= ops / F32_OPS_PER_S else "operations")
     entry["bound_ms"] = 1e3 * max(bytes_moved / MEM_BYTES_PER_S,
                                   ops / F32_OPS_PER_S)
-    if device.type == "cuda":
-        # three input sets in turn (3 x 39 MB > the 50 MB L2), so each
-        # timed launch reads its inputs from device memory
-        sets = itertools.cycle(
-            [args] + [[a.clone() for a in args] for _ in range(2)])
-        entry["ms"] = device_ms(torch, lambda: red.timeline_reduce(
-            *next(sets), thresh=THRESH), reps=60)
-        entry["plain_ms"] = device_ms(torch, lambda: red.ref_timeline_reduce(
-            *next(sets), thresh=THRESH), reps=10)
     entry["library_ms"] = None
+    if device.type != "cuda":
+        return entry
+    # three input sets in turn (3 x 39 MB > the 50 MB L2), so each timed
+    # launch reads its inputs from device memory
+    sets = itertools.cycle([args] + [[a.clone() for a in args]
+                                     for _ in range(2)])
+    run = lambda: red.timeline_reduce(*next(sets), thresh=THRESH)
+    entry["ms"] = device_ms(torch, run, reps=60)
+    entry["plain_ms"] = device_ms(torch, lambda: red.ref_timeline_reduce(
+        *next(sets), thresh=THRESH), reps=10)
+    dev_ms = profiled_device_ms(torch, run, 30)
+    # the wrapper's host time a call: 200 calls, not synchronised
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        run()
+    host_us = 1e6 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize()
+    log(f"reduce: {entry['ms']:.6f} ms by events (60 calls), device "
+        f"{fmt_ms(dev_ms)}, wrapper host {host_us:.3f} us a call (200 "
+        f"calls); plain {entry['plain_ms']:.6f} ms; bound "
+        f"{entry['bound_ms']:.6f} ms ({entry['bound_by']})")
+    case.update(ms=entry["ms"], device_ms=dev_ms, host_us=host_us)
     return entry
+
+
+def phase_reduce_cases(torch, device) -> list:
+    """B1's later cases, each exact: a part-filled block of rows, fewer
+    rows than a block, T 1, 33 and 241, R 1 and 8, and inputs whose bases
+    lie 4 bytes past their allocations."""
+    cases = []
+    shapes = ((4_099, 240, 7, "S 4,099 (a part-filled block)"),
+              (1, 240, 7, "S 1"),
+              (3, 240, 7, "S 3"),
+              (1_001, 1, 7, "T 1"),
+              (1_000, 33, 7, "T 33"),
+              (1_000, 241, 7, "T 241"),
+              (1_000, 240, 1, "R 1"),
+              (1_002, 240, 8, "R 8"))
+    for k, (S, T, R, label) in enumerate(shapes):
+        host = reduce_inputs(REDUCE_CASES_SEED + k, S, T, R)
+        args = [torch.from_numpy(a).to(device) for a in host]
+        cases.append(hold_reduce(torch, args, f"reduce, {label}")[2])
+    # contiguous views 4 bytes past their allocations' starts
+    S, T, R = REDUCE_SHAPE
+    host = reduce_inputs(REDUCE_CASES_SEED + len(shapes), S, T, R)
+    args = []
+    for a in host[:4]:
+        flat = torch.empty(a.size + 1, dtype=torch.float32, device=device)
+        view = flat[1:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        check(view.is_contiguous() and view.data_ptr() % 16 != 0
+              and view.data_ptr() - flat.data_ptr() == 4,
+              "reduce: the offset view")
+        args.append(view)
+    args.append(torch.from_numpy(host[4]).to(device))
+    cases.append(hold_reduce(torch, args, "reduce, bases 4 bytes in")[2])
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -1786,7 +1860,7 @@ def setup(torch):
                 entry = line.split("'")[1] if "'" in line else line.strip()
             elif "registers" in line or "spill" in line:
                 log(f"ptxas {name} {entry}: {line.strip()}")
-                # B2's, B3's and B8's kernels are held to no spills
+                # B1's, B2's, B3's and B8's kernels are held to no spills
                 check(name not in NO_SPILL or "spill" not in line
                       or ("0 bytes spill stores" in line
                           and "0 bytes spill loads" in line),
@@ -1898,7 +1972,16 @@ def main() -> int:
         f"{sorted(set(cpu) - set(exact))})")
 
     # where the time goes: one profiled warm run
-    profile_run("sweep", torch, lambda: eng.run(grid), card)
+    before = timeline_reduce.launches
+    sweep_us = profile_run("sweep", torch, lambda: eng.run(grid), card)
+    chunks = timeline_reduce.launches - before
+    b1_us = sum(us for name, us in sweep_us.items()
+                if "timeline_reduce" in name)
+    log(f"profile sweep: timeline_reduce "
+        + (f"{b1_us / 1e3 / chunks:.6f} ms device a chunk over {chunks} "
+           f"chunks ({b1_us:.1f} us of the run)" if b1_us > 0
+           else "not measured")
+        + f" [{card}]")
 
     # phase 4: the telemetry histogram kernel on the paper-scale universe
     from repro_torch.core.dependency import trace_edges
@@ -1941,9 +2024,12 @@ def main() -> int:
         f"{json.dumps({k: model[k] for k in ('prefill', 'decode')})} "
         f"[{card}]")
 
-    # phases 2b and 4b: B2's and B3's later cases, run after every timed
-    # path and kernel above, so those run in the state the earlier phases
-    # leave them
+    # phases 1b, 2b and 4b: B1's, B2's and B3's later cases, run after
+    # every timed path and kernel above, so those run in the state the
+    # earlier phases leave them
+    k_reduce["cases"] += phase_reduce_cases(torch, device)
+    log(f"phase 1b ok: timeline_reduce == plain in "
+        f"{len(k_reduce['cases'])} cases [{card}]")
     k_prop["cases"] = phase_propagation_cases(torch, device, graph, relay,
                                               consts_relay, dark, card)
     log(f"phase 2b ok: fixed_point_ell == plain in "

@@ -15,9 +15,13 @@ Replaces ``repro/kernels/ufa/reduce.py::timeline_reduce`` (Pallas
 
 Min/max/first-crossing outputs are exact against the reference's
 sequential scan; ``avail_int`` is a float32 sum in another order
-(float32-tight).  The kernel (``csrc/timeline_reduce.cu``) says what
-bounds it and how its design answers that.  ``timeline_reduce`` launches
-it for CUDA tensors and takes ``ref_timeline_reduce`` for CPU tensors.
+(float32-tight).
+
+``timeline_reduce`` launches the kernel (``csrc/timeline_reduce.cu``,
+which says what bounds it and how its design answers that) for CUDA
+tensors and takes ``ref_timeline_reduce`` for CPU tensors.  The kernel
+writes one ``(S, 4)`` stats array, the Pallas kernel's layout, whose
+columns the result's four ``(S,)`` entries are.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 
 from repro_torch.kernels import backend, build
 
-MAX_TIERS = 8                   # the kernel keeps per-tier state in registers
+MAX_TIERS = 8       # the kernel keeps tier r in lane r and picks it from 8 ballots
 
 
 def ref_timeline_reduce(avail: torch.Tensor, util: torch.Tensor,
@@ -53,14 +57,28 @@ def ref_timeline_reduce(avail: torch.Tensor, util: torch.Tensor,
 
 
 def _lib():
-    lib = build.load("timeline_reduce")
-    fn = lib.timeline_reduce_launch
+    fn = build.load("timeline_reduce").timeline_reduce_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float,
-                       p, p, p, p, p, p, p]
+                       p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _outputs(S: int, R: int, device):
+    """One float32 buffer of ``S * (4 + R)`` values (stats ``(S, 4)``,
+    the Pallas kernel's layout, then restore_t ``(S, R)``) and one bool
+    ``(S, R)``; returns them and the result's views under its keys."""
+    buf = torch.empty(S * (4 + R), dtype=torch.float32, device=device)
+    seen = torch.empty((S, R), dtype=torch.bool, device=device)
+    view = buf.as_strided       # one call a view: the wrapper's host time
+    return buf, seen, {"avail_int": view((S,), (4,), 0),
+                       "avail_min": view((S,), (4,), 1),
+                       "util_peak": view((S,), (4,), 2),
+                       "cloud_peak": view((S,), (4,), 3),
+                       "restore_t": view((S, R), (R, 1), 4 * S),
+                       "below_seen": seen}
 
 
 def timeline_reduce(avail: torch.Tensor, util: torch.Tensor,
@@ -69,8 +87,9 @@ def timeline_reduce(avail: torch.Tensor, util: torch.Tensor,
                     ) -> Dict[str, torch.Tensor]:
     """avail/util/cloud (S, T) f32, tier_frac (S, T, R) f32, ts (T,) f32
     -> the scan-carry equivalents: four (S,) f32, restore_t (S, R) f32,
-    below_seen (S, R) bool.  CUDA tensors launch the kernel; CPU tensors
-    take ``ref_timeline_reduce``."""
+    below_seen (S, R) bool.  CPU tensors take ``ref_timeline_reduce``;
+    CUDA tensors launch the kernel (the four (S,) results are columns of
+    one (S, 4) array)."""
     args = (avail, util, cloud, tier_frac, ts)
     if backend.kernel_route("timeline_reduce", *args) == "cpu":
         return ref_timeline_reduce(*args, thresh=thresh)
@@ -81,26 +100,17 @@ def timeline_reduce(avail: torch.Tensor, util: torch.Tensor,
     if (util.shape != (S, T) or cloud.shape != (S, T)
             or tier_frac.shape != (S, T, R) or ts.shape != (T,)):
         raise ValueError("timeline_reduce: inconsistent shapes")
-    if T < 1 or R > MAX_TIERS:
-        raise ValueError(f"timeline_reduce: needs T >= 1 and R <= "
+    if T < 1 or not 1 <= R <= MAX_TIERS:
+        raise ValueError(f"timeline_reduce: needs T >= 1 and 1 <= R <= "
                          f"{MAX_TIERS}, got T={T}, R={R}")
-    avail, util, cloud, tier_frac, ts = (a.contiguous() for a in args)
-    f32 = dict(dtype=torch.float32, device=avail.device)
-    out = {"avail_int": torch.empty(S, **f32),
-           "avail_min": torch.empty(S, **f32),
-           "util_peak": torch.empty(S, **f32),
-           "cloud_peak": torch.empty(S, **f32),
-           "restore_t": torch.empty((S, R), **f32),
-           "below_seen": torch.empty((S, R), dtype=torch.bool,
-                                     device=avail.device)}
+    buf, seen, out = _outputs(S, R, avail.device)
     if S == 0:
         return out
-    backend.launch("timeline_reduce", _lib(), avail.data_ptr(),
-                   util.data_ptr(), cloud.data_ptr(), tier_frac.data_ptr(),
-                   ts.data_ptr(), S, T, R, float(thresh),
-                   out["avail_int"].data_ptr(), out["avail_min"].data_ptr(),
-                   out["util_peak"].data_ptr(), out["cloud_peak"].data_ptr(),
-                   out["restore_t"].data_ptr(), out["below_seen"].data_ptr(),
+    args = tuple(a.contiguous() for a in args)   # alive until the launch
+    stats = buf.data_ptr()
+    backend.launch("timeline_reduce", _lib(),
+                   *[a.data_ptr() for a in args], S, T, R,
+                   float(thresh), stats, stats + 16 * S, seen.data_ptr(),
                    device=avail.device)
     timeline_reduce.launches += 1
     return out

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.backend import resolve_device
 
 Params = Dict[str, Any]
 
@@ -58,7 +59,10 @@ def _embed_init(gen: torch.Generator, shape, dtype):
 
 
 def init_rmsnorm(dim: int, dtype=torch.float32, device=None) -> Params:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    """Unit scale on ``device`` (default: the CUDA card, as every entry
+    point of the port)."""
+    return {"scale": torch.ones((dim,), dtype=dtype,
+                                device=resolve_device(device))}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -110,6 +110,190 @@ def test_timeline_reduce_cpu_launches_no_kernel():
 
 
 # ---------------------------------------------------------------------------
+# B1: the wrapper's output views; a numpy model of the kernel's walk
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("S,R", [(4_096, 7), (5, 8), (1, 1), (0, 3)])
+def test_timeline_reduce_output_views_on_meta(S, R):
+    """The wrapper's one float32 buffer (stats, then restore_t) and one
+    bool array give the plain version's keys, shapes and dtypes."""
+    buf, seen, out = port_red._outputs(S, R, "meta")
+    assert buf.shape == (S * (4 + R),) and buf.dtype == torch.float32
+    assert seen.shape == (S, R) and seen.dtype == torch.bool
+    want = port_red.ref_timeline_reduce(
+        torch.ones(S, 2), torch.ones(S, 2), torch.ones(S, 2),
+        torch.ones(S, 2, R), torch.arange(2.0), thresh=THRESH)
+    assert list(out) == list(want)
+    for k, w in want.items():
+        assert out[k].device.type == "meta", k
+        assert (out[k].shape, out[k].dtype) == (w.shape, w.dtype), k
+    # the four stats are the columns of one (S, 4) array, restore_t follows
+    assert out["avail_int"].stride() == (4,)
+    assert out["util_peak"].storage_offset() == 2
+    assert out["restore_t"].storage_offset() == 4 * S
+    assert out["restore_t"].stride() == (R, 1)
+
+
+FULL = 0xFFFFFFFF
+MODEL_ROWS_PER_BLOCK = 8    # csrc/timeline_reduce.cu's ROWS_PER_BLOCK
+MODEL_WINDOWS = 4           # ... and WINDOWS: 32-step windows loaded at once
+
+
+def _ballot(pred):
+    """A warp's ``__ballot_sync``: lane l's predicate in bit l."""
+    return int(np.dot(pred.astype(np.int64), 1 << np.arange(32)))
+
+
+def _ffs(x):
+    """``__ffs``: the 1-based index of the lowest set bit, 0 for none."""
+    return (x & -x).bit_length()
+
+
+def _model_stats(a, u, c, dt):
+    """One warp's ``row_stats``: lane-strided float32 sums and extrema
+    over loads of ``MODEL_WINDOWS`` windows (each lane's steps clamped to
+    the row's last, the sums predicated), finished by xor butterflies."""
+    T = len(a)
+    lanes = np.arange(32)
+    acc = np.zeros(32, np.float32)
+    amin = np.full(32, np.inf, np.float32)
+    umax = np.full(32, -np.inf, np.float32)
+    cmax = np.full(32, -np.inf, np.float32)
+    for c0 in range(0, T, 32 * MODEL_WINDOWS):
+        t = [np.minimum(c0 + 32 * w + lanes, T - 1)
+             for w in range(MODEL_WINDOWS)]
+        loads = [(a[tw], u[tw], c[tw], dt[tw]) for tw in t]
+        for w, (av, uv, cv, d) in enumerate(loads):
+            v = c0 + 32 * w + lanes < T
+            acc[v] = acc[v] + av[v] * d[v]      # float32 mul, then add
+            amin[v] = np.minimum(amin[v], av[v])
+            umax[v] = np.maximum(umax[v], uv[v])
+            cmax[v] = np.maximum(cmax[v], cv[v])
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[lanes ^ off]
+        amin = np.minimum(amin, amin[lanes ^ off])
+        umax = np.maximum(umax, umax[lanes ^ off])
+        cmax = np.maximum(cmax, cmax[lanes ^ off])
+    return np.array([acc[0], min(amin[0], np.float32(1)),
+                     max(umax[0], np.float32(0)),
+                     max(cmax[0], np.float32(0))], np.float32)
+
+
+def _model_crossings(fr, ts, thresh):
+    """One warp's ``row_crossings``: the loads and ballots (one a tier)
+    of ``MODEL_WINDOWS`` 32-step windows first, each lane's step clamped
+    to the row's last, then each window's logic in order with the carried
+    warp-uniform ``seen`` and ``found`` flags; the first crossing kept as
+    a step index and its time read at the end."""
+    T, R = fr.shape
+    lanes = np.arange(32)
+    seen, found, cross_t = [False] * R, [False] * R, [0] * R
+    for c0 in range(0, T, 32 * MODEL_WINDOWS):
+        below = []
+        for w in range(MODEL_WINDOWS):
+            v = c0 + 32 * w + lanes < T
+            f = fr[np.minimum(c0 + 32 * w + lanes, T - 1)]
+            below.append([_ballot(v & (f[:, r] < np.float32(thresh)))
+                          for r in range(R)])
+        for w in range(MODEL_WINDOWS):
+            t0 = c0 + 32 * w
+            left = T - t0
+            valid_bits = (FULL if left >= 32
+                          else (1 << left) - 1 if left > 0 else 0)
+            for r in range(R):
+                b = below[w][r]
+                # lanes after the window's first below lane, all once seen
+                first = b & (-b & FULL)
+                after = FULL if seen[r] else ~(((first << 1) & FULL) - 1) & FULL
+                cross = 0 if found[r] else ~b & valid_bits & after
+                cross_t[r] = t0 + _ffs(cross) - 1 if cross else cross_t[r]
+                found[r] = found[r] or cross != 0
+                seen[r] = seen[r] or b != 0
+    rest = np.array([ts[cross_t[r]] if found[r] else np.inf
+                     for r in range(R)], np.float32)
+    return rest, np.array(seen)
+
+
+def _model_timeline_reduce(avail, util, cloud, frac, ts, thresh):
+    """The CUDA launch as a walk: eight rows a block, a warp a row, every
+    row written exactly once."""
+    S, T, R = frac.shape
+    dt = np.zeros(T, np.float32)
+    dt[1:] = np.maximum(ts[1:] - ts[:-1], np.float32(0))
+    stats = np.full((S, 4), np.nan, np.float32)
+    rest = np.full((S, R), np.nan, np.float32)
+    seen = np.zeros((S, R), bool)
+    written = np.zeros(S, int)
+    for block in range(-(-S // MODEL_ROWS_PER_BLOCK)):
+        for i in range(block * MODEL_ROWS_PER_BLOCK,
+                       min(S, (block + 1) * MODEL_ROWS_PER_BLOCK)):
+            rest[i], seen[i] = _model_crossings(frac[i], ts, thresh)
+            stats[i] = _model_stats(avail[i], util[i], cloud[i], dt)
+            written[i] += 1
+    assert (written == 1).all()
+    return {"avail_int": stats[:, 0], "avail_min": stats[:, 1],
+            "util_peak": stats[:, 2], "cloud_peak": stats[:, 3],
+            "restore_t": rest, "below_seen": seen}
+
+
+def _crossing_series(S, T, R, seed):
+    """``_series``' distributions at (S, T, R), plus tiers set by hand,
+    each at its own (row, tier) slot while slots last: below only at the
+    last step; below at lane 31 of the first window, crossing at lane 0
+    of the next; below through lane 30, crossing at lane 31; below from
+    step 20 to 40, crossing past a window edge; below at step 0 only."""
+    rng = np.random.default_rng(seed)
+    avail = (0.999 + 0.001 * rng.random((S, T))).astype(np.float32)
+    util = (rng.random((S, T)) * 1.5).astype(np.float32)
+    cloud = (rng.random((S, T)) * 1e5 - 1e4).astype(np.float32)
+    frac = (0.995 + 0.01 * rng.random((S, T, R))).astype(np.float32)
+    ts = (np.arange(T) * 30.0).astype(np.float32)
+    patterns = ([T - 1], [min(31, T - 1)], list(range(min(31, T - 1))),
+                list(range(min(20, T - 1), min(41, T))), [0])
+    for k, below in enumerate(patterns[:S * R]):
+        i, r = k % S, k // S
+        frac[i, :, r] = 1.0
+        frac[i, below, r] = 0.5
+    return avail, util, cloud, frac, ts
+
+
+@pytest.mark.parametrize("S,T,R", [
+    (1, 1, 1),          # one step, one tier
+    (3, 31, 7),         # under one window
+    (9, 32, 8),         # one whole window; a second block of rows
+    (5, 33, 7),         # a window edge: crossings at lane 31 and lane 0
+    (4, 65, 1),         # one tier over three windows
+    (9, 128, 8),        # one whole load of four windows
+    (8, 129, 7),        # a step into the second load
+    (9, 241, 8),        # the sweep's T + 1, R 8
+])
+def test_timeline_reduce_model_matches_pallas(S, T, R):
+    """The kernel's walk, exactly against the Pallas kernel in interpret
+    mode on the five selected outputs and within rtol 3e-6 on avail_int,
+    which the model sums in the kernel's own order.  It checks the
+    algorithm (ballots, carried flags, loads clamped at the row's end);
+    only the card runs the kernel itself (chip_smoke.py, phases 1, 1b)."""
+    host = _crossing_series(S, T, R, seed=S * 100 + T * 10 + R)
+    got = _model_timeline_reduce(*host, THRESH)
+    pallas = _to_np(ref_red.timeline_reduce(
+        *[jnp.asarray(a) for a in host], thresh=THRESH, block_s=8))
+    for k in EXACT_REDUCE:
+        assert got[k].dtype == pallas[k].dtype, k
+        assert np.array_equal(got[k], pallas[k]), k
+    np.testing.assert_allclose(got["avail_int"], pallas["avail_int"],
+                               rtol=3e-6)
+    # the hand-set crossings landed where they were put
+    frac, ts = host[3], host[4]
+    if T >= 33 and S * R > 1:
+        i, r = 1 % S, 1 // S
+        assert got["restore_t"][i, r] == ts[32]
+    if T >= 42 and S * R > 3:
+        i, r = 3 % S, 3 // S
+        assert got["restore_t"][i, r] == ts[41]
+
+
+# ---------------------------------------------------------------------------
 # B2: ELL propagation fixed point
 # ---------------------------------------------------------------------------
 

@@ -319,3 +319,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     # a generator given sets the device: a CPU generator, CPU parameters
     p = models.init_params(cfg, torch.Generator().manual_seed(0))
     assert p["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_init_rmsnorm_defaults_to_cuda(monkeypatch, dtype):
+    """Unit scale on the device asked for; with no device, the card, which
+    raises where there is none (no quiet CPU default)."""
+    p = layers.init_rmsnorm(48, dtype, device="cpu")
+    assert p["scale"].device.type == "cpu" and p["scale"].dtype == dtype
+    assert p["scale"].shape == (48,) and bool((p["scale"] == 1).all())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layers.init_rmsnorm(48, dtype)
