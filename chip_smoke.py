@@ -102,6 +102,27 @@ profile):
       chunks ending inside a tile, views not 16-byte aligned and one
       record.
 
+and last, with the metrics registry on:
+
+  8. runs the monitored temporal sweep on phase 3's fleet and grid:
+     (a) ``sweep_timeline(..., return_traces=True)`` over the 65,536
+     scenarios, cold and warm, with the timeline reduction counted (one
+     launch a chunk of 4,096), every trace series checked for shape,
+     dtype and finite values, the summary bit-identical to a traces-off
+     run, and the first 4,096 rows held against the port's CPU run; (b)
+     ``obs.slo.sweep_alerts`` on the card over every availability trace,
+     equal to the CPU run on every row and to the float64 ``alerts_np``
+     on up to 2,048 alerting rows and 512 others drawn from seed 88,
+     with ``alert_quality`` against the SLA verdict; one profiled warm
+     run of (a) and of (b); (c) ``sweep_with_dependency_ensemble`` on
+     the first 4,096 rows, ``temporal=False`` against the CPU run (the
+     propagation kernel counted) and ``temporal=True`` bit-identical to
+     a ``SweepEngine`` run under the same stage seed; (d)
+     ``simulate_timeline`` at the snapshot times of a traced
+     ``Orchestrator.failover()`` on a 0.02-scale fleet, card against
+     CPU, then ``monitor_orchestrator`` and the Prometheus / JSONL
+     exports (under ``build/``) and the Chrome trace, validated.
+
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
 integral and mean, float32 sums in another order, rtol 3e-6 (kernel) and
@@ -164,6 +185,9 @@ RELAY_CHAIN_FRACTION = 0.3  # multi-hop case of phase 2
 HIST_CHUNK = 4_000_000      # one chunk of the detector's stream (phase 4)
 DETECT_SEED = 7             # the fleet and stream seed of phases 4 and 5
 REDUCE_CASES_SEED = 23      # phase 1b's inputs, one seed a case from here
+TRACE_SEED = 88             # phase 8: the campaign seed and sampled rows
+TRACE_ROWS = 4096           # phase 8: rows held against the CPU run
+ALERT_ROWS = (2048, 512)    # phase 8b: alerting rows held, other rows held
 MODEL_SEED = 15             # the random inputs of phase 6
 MODEL7_SEED = 16            # phase 7's weights and tokens
 MODEL7_TOL = 1e-4           # phase 7a, card vs CPU: tests/test_torch_models
@@ -1808,6 +1832,247 @@ def _leaves(tree):
             yield v
 
 # ---------------------------------------------------------------------------
+# phase 8: the monitored temporal sweep
+# ---------------------------------------------------------------------------
+
+
+def phase_traces(torch, device, fs, graph, agg, cfg, grid: dict,
+                 card: str) -> dict:
+    """The per-step traces, the SLO monitor, the dependency ensemble and
+    a traced failover's timeline on the card, each held against the
+    port's CPU run; returns the kernels' launches by path."""
+    from repro_torch import obs
+    from repro_torch.core.capacity import RegionCapacity
+    from repro_torch.core.omg import Orchestrator
+    from repro_torch.core.scenarios import (stage_seed,
+                                            sweep_with_dependency_ensemble)
+    from repro_torch.core.service import synthesize_fleet
+    from repro_torch.core.sweep_engine import CHUNK, SweepEngine
+    from repro_torch.core.timeline_sim import (simulate_timeline,
+                                               sweep_timeline)
+    from repro_torch.kernels.ufa.propagation import fixed_point_ell
+    from repro_torch.kernels.ufa.reduce import timeline_reduce
+    from repro_torch.obs import export, slo
+    from repro_torch.obs.profiler import Profiler
+
+    n = len(grid["traffic_mult"])
+    rows = min(TRACE_ROWS, n)
+    head = {k: v[:rows] for k, v in grid.items()}
+    rng = np.random.default_rng(TRACE_SEED)
+    obs.default_registry().reset()
+    obs.enable()
+    prof = Profiler()
+    launches = {}
+    on_card = device.type == "cuda"   # a cpu rehearsal launches no kernel
+
+    # (a) the trace sweep, counted, cold and warm
+    timeline_reduce.launches = 0
+    if on_card:
+        torch.cuda.synchronize()
+    with prof.phase("8a trace sweep cold"):
+        res = sweep_timeline(cfg, grid, return_traces=True, device=device)
+    launches["b1 trace sweep"] = timeline_reduce.launches
+    chunks = -(-n // CHUNK) if on_card else 0
+    check(timeline_reduce.launches == chunks,
+          f"trace sweep: {timeline_reduce.launches} timeline_reduce "
+          f"launches, want {chunks}")
+    T = len(res["t"])
+    for k, v in res.items():
+        if k.startswith("trace_"):
+            want = (n, T, 7) if k == "trace_tier_live" else (n, T)
+            check(v.shape == want and v.dtype == np.float32,
+                  f"trace sweep: {k} is {v.dtype}{v.shape}, want "
+                  f"float32{want}")
+            check(np.isfinite(v).all(), f"trace sweep: {k} not finite")
+    check(len([k for k in res if k.startswith("trace_")]) == 20,
+          "trace sweep: want 20 trace series")
+    warm = []
+    for _ in range(WARM_RUNS):
+        with GcTime() as gct:
+            with prof.phase("8a trace sweep warm"):
+                again = sweep_timeline(cfg, grid, return_traces=True,
+                                       device=device)
+        warm.append(f"{prof.phases['8a trace sweep warm']:.4f} s ({gct})")
+    for k in res:
+        check(np.array_equal(res[k], again[k], equal_nan=True),
+              f"trace sweep: {k} differs between runs")
+    del again
+    with prof.phase("8a summary sweep"):
+        off = sweep_timeline(cfg, grid, device=device)
+    check(set(res) == set(off) | {"t"} | {k for k in res
+                                          if k.startswith("trace_")},
+          "trace sweep: summary keys differ from the traces-off run")
+    for k, v in off.items():
+        check(np.array_equal(v, res[k], equal_nan=True),
+              f"trace sweep: summary {k} differs from the traces-off run")
+    gb = sum(v.nbytes for k, v in res.items() if k.startswith("trace_"))
+    log(f"phase 8a: trace sweep {n} scenarios, {gb / 1e9:.3f} GB of "
+        f"traces: cold {prof.phases['8a trace sweep cold']:.4f} s, warm "
+        + ", ".join(warm) + f"; traces off "
+        f"{prof.phases['8a summary sweep']:.4f} s; summary bit-identical "
+        f"to the traces-off run [{card}]")
+    t0 = time.perf_counter()
+    cpu = sweep_timeline(cfg, head, return_traces=True, device="cpu")
+    log(f"cpu trace sweep of {rows} scenarios: "
+        f"{time.perf_counter() - t0:.2f} s")
+    got = {k: (v if k == "t" else v[:rows]) for k, v in res.items()}
+    rtol = {k: F32_TIGHT for k, v in cpu.items() if v.dtype.kind == "f"}
+    rtol["availability_mean"] = AVAIL_MEAN_RTOL
+    rtol["t"] = 0.0
+    compare(got, cpu, rtol, "trace sweep vs cpu")
+    same = sorted(k for k in cpu if np.array_equal(got[k], cpu[k],
+                                                   equal_nan=True))
+    log(f"phase 8a ok: gpu == cpu on the first {rows} scenarios "
+        f"({len(same)} of {len(cpu)} keys bit-identical, "
+        f"{sum(k.startswith('trace_') for k in same)} of 20 trace keys; "
+        f"differing: {sorted(set(cpu) - set(same))})")
+    del cpu, got
+
+    # (b) the SLO burn-rate monitor over every trace
+    avail, ts = res["trace_availability"], res["t"]
+    a_dev = torch.from_numpy(avail).to(device)
+    with prof.phase("8b sweep_alerts", sync=a_dev):
+        verd = slo.sweep_alerts(a_dev, ts, device=device)
+    t0 = time.perf_counter()
+    verd_cpu = slo.sweep_alerts(avail, ts, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for k in ("alert", "t_first_alert", "rule_first_alert", "burn_peak"):
+        check(verd[k].dtype == verd_cpu[k].dtype
+              and np.array_equal(verd[k], verd_cpu[k]),
+              f"sweep_alerts: {k} differs between the card and the cpu")
+    alerting = np.flatnonzero(verd["alert"])
+    quiet = np.flatnonzero(~verd["alert"])
+    check(len(alerting) > 0, "sweep_alerts: no scenario alerts")
+    held = np.concatenate([
+        rng.choice(alerting, min(ALERT_ROWS[0], len(alerting)),
+                   replace=False),
+        rng.choice(quiet, min(ALERT_ROWS[1], len(quiet)), replace=False)])
+    for i in held:
+        want = slo.alerts_np(avail[i], ts)
+        check(bool(verd["alert"][i]) == bool(want["alert"])
+              and verd["t_first_alert"][i] == np.float32(
+                  want["t_first_alert"])
+              and verd["rule_first_alert"][i] == want["rule_first_alert"],
+              f"sweep_alerts: row {i} differs from alerts_np")
+        peak = np.float32(want["burn_peak"])
+        check(abs(verd["burn_peak"][i] - peak) <= np.spacing(peak),
+              f"sweep_alerts: row {i} burn_peak {verd['burn_peak'][i]} "
+              f"against alerts_np's {want['burn_peak']}")
+    quality = slo.alert_quality(verd["alert"], ~res["avail_ok"],
+                                verd["t_first_alert"])
+    log(f"phase 8b ok: sweep_alerts over {n} traces "
+        f"{prof.phases['8b sweep_alerts']:.4f} s (cpu {cpu_s:.2f} s), card "
+        f"== cpu on every row, == alerts_np on {len(held)} rows "
+        f"({min(len(alerting), ALERT_ROWS[0])} alerting); "
+        f"{json.dumps(quality)} [{card}]")
+    del a_dev
+
+    # where the time goes: one profiled warm run of each
+    profiled = on_card
+    if profiled:
+        before = timeline_reduce.launches
+        us = profile_run("trace sweep", torch, lambda: sweep_timeline(
+            cfg, grid, return_traces=True, device=device), card)
+        n_chunks = timeline_reduce.launches - before
+        b1_us = sum(v for k, v in us.items() if "timeline_reduce" in k)
+        log("profile trace sweep: timeline_reduce "
+            + (f"{b1_us / 1e3 / n_chunks:.6f} ms device a chunk over "
+               f"{n_chunks} chunks" if b1_us > 0 else "not measured")
+            + f" [{card}]")
+        profile_run("sweep_alerts", torch, lambda: slo.sweep_alerts(
+            avail, ts, device=device), card)
+    del res, avail
+
+    # (c) the dependency ensemble on the first rows, both ways
+    fixed_point_ell.launches = 0
+    with prof.phase("8c ensemble"):
+        ens = sweep_with_dependency_ensemble(fs, head, seed=TRACE_SEED,
+                                             device=device)
+    launches["b2 ensemble"] = fixed_point_ell.launches
+    check(fixed_point_ell.launches > 0 or not on_card, "ensemble launched "
+          "no fixed_point_ell")
+    t0 = time.perf_counter()
+    ens_cpu = sweep_with_dependency_ensemble(fs, head, seed=TRACE_SEED,
+                                             device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rtol = {k: F32_TIGHT for k, v in ens_cpu.items()
+            if v.dtype.kind == "f" and k not in head}
+    compare(ens, ens_cpu, rtol, "ensemble vs cpu")
+    same = sum(np.array_equal(ens[k], ens_cpu[k]) for k in ens_cpu)
+    check(ens["dep_n_broken_critical"].max() > 0, "ensemble: nothing broke")
+    fixed_point_ell.launches = timeline_reduce.launches = 0
+    with prof.phase("8c ensemble temporal"):
+        ens_t = sweep_with_dependency_ensemble(fs, head, seed=TRACE_SEED,
+                                               temporal=True, device=device)
+    launches["b2 ensemble temporal"] = fixed_point_ell.launches
+    launches["b1 ensemble temporal"] = timeline_reduce.launches
+    check((fixed_point_ell.launches > 0 and timeline_reduce.launches > 0)
+          or not on_card, "temporal ensemble launched no fixed_point_ell or timeline_reduce")
+    direct = SweepEngine(agg, cfg, graph=graph,
+                         seed=stage_seed(TRACE_SEED, "sweep-engine"),
+                         device=device).run(head)
+    check(set(direct) == set(ens_t), "temporal ensemble: keys differ")
+    for k, v in direct.items():
+        check(np.array_equal(v, ens_t[k], equal_nan=True),
+              f"temporal ensemble: {k} differs from the direct engine run")
+    log(f"phase 8c ok: ensemble of {rows} scenarios "
+        f"{prof.phases['8c ensemble']:.4f} s (cpu {cpu_s:.2f} s; {same} of "
+        f"{len(ens_cpu)} keys bit-identical), fixed_point_ell x"
+        f"{launches['b2 ensemble']}; temporal "
+        f"{prof.phases['8c ensemble temporal']:.4f} s == SweepEngine with "
+        f"stage_seed({TRACE_SEED}, 'sweep-engine'), fixed_point_ell x"
+        f"{launches['b2 ensemble temporal']}, timeline_reduce x"
+        f"{launches['b1 ensemble temporal']} [{card}]")
+
+    # (d) simulate_timeline at a traced failover's snapshot times
+    small = synthesize_fleet(scale=0.02, seed=1)
+    tracer = obs.Tracer()
+    orch = Orchestrator(small, RegionCapacity.for_fleet("r", small),
+                        tracer=tracer)
+    tcfg = orch.timeline_config()
+    rep = orch.failover()
+    snap_t = orch.timeline.as_arrays()["t"]
+    timeline_reduce.launches = 0
+    with prof.phase("8d simulate_timeline"):
+        sim = simulate_timeline(tcfg, ts=snap_t, device=device)
+    launches["b1 simulate_timeline"] = timeline_reduce.launches
+    check(timeline_reduce.launches == on_card, "simulate_timeline: "
+          f"{timeline_reduce.launches} timeline_reduce launches, want 1")
+    sim_cpu = simulate_timeline(tcfg, ts=snap_t, device="cpu")
+    rtol = {k: F32_TIGHT for k, v in sim_cpu.items()
+            if np.asarray(v).dtype.kind == "f"}
+    rtol["availability_mean"] = AVAIL_MEAN_RTOL
+    rtol["t"] = 0.0
+    compare({k: np.atleast_1d(v) for k, v in sim.items()},
+            {k: np.atleast_1d(v) for k, v in sim_cpu.items()}, rtol,
+            "simulate_timeline vs cpu")
+    check(abs(float(sim["burst_full_s"]) - rep.burst_full_at_s) <= 1e-2
+          and abs(float(sim["am_done_s"]) - rep.am_migrated_at_s) <= 1e-2,
+          "simulate_timeline: completion times differ from the failover's")
+    mon = slo.monitor_orchestrator(small, orch)
+    path = os.path.join(ROOT, "build", "phase8_metrics.prom")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    text = open(export.write_prometheus(path)).read()
+    export.write_jsonl(path[:-len(".prom")] + ".jsonl",
+                       meta={"phase": 8, "scenarios": n})
+    problems = export.validate_prometheus(text) + \
+        obs.validate_chrome_trace(tracer.to_chrome())
+    check(not problems, f"phase 8 exports: {problems[:5]}")
+    # cold, warm, traces off and profiled runs of n, the cpu run of rows
+    metered = (2 + WARM_RUNS + profiled) * n + rows
+    check(obs.value("ufa_timeline_scenarios_total") == metered,
+          f"phase 8: {obs.value('ufa_timeline_scenarios_total')} timeline "
+          f"scenarios metered, want {metered}")
+    log(f"phase 8d ok: simulate_timeline at {len(snap_t)} snapshot times "
+        f"of a {len(small)}-service failover ({len(tracer)} trace events) "
+        f"{prof.phases['8d simulate_timeline']:.4f} s, card == cpu; "
+        f"monitor_orchestrator alert={mon['alert']}; metrics "
+        f"{len(export.parse_prometheus(text))} families [{card}]")
+    obs.disable()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -2037,6 +2302,23 @@ def main() -> int:
     k_ingest["cases"] += phase_ingest_cases(torch, device, edges)
     log(f"phase 4b ok: ingest_hist == plain in {len(k_ingest['cases'])} "
         f"cases [{card}]")
+
+    # phase 8: the monitored temporal sweep on the paper-scale fleet, the
+    # traces' B1 and the ensemble's B2 counted
+    t0 = time.perf_counter()
+    traced = phase_traces(torch, device, fs, graph, agg, cfg, grid, card)
+    log(f"phase 8 ok: {time.perf_counter() - t0:.2f} s, launches "
+        f"{json.dumps(traced)} [{card}]")
+    k_reduce["launches_by_path"] = {
+        "sweep (phase 3)": k_reduce["launches"],
+        "trace sweep (phase 8a)": traced["b1 trace sweep"],
+        "temporal ensemble (phase 8c)": traced["b1 ensemble temporal"],
+        "simulate_timeline (phase 8d)": traced["b1 simulate_timeline"]}
+    k_reduce["launches"] = traced["b1 trace sweep"]
+    k_prop["launches_by_path"].update({
+        "ensemble (phase 8c)": traced["b2 ensemble"],
+        "temporal ensemble (phase 8c)": traced["b2 ensemble temporal"]})
+    k_prop["launches"] = traced["b2 ensemble"]
 
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",

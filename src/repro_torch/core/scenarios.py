@@ -7,10 +7,17 @@ scenario axis, op for op in the reference's order: booleans match the
 reference exactly, floats to the last bit or within it where the
 reference's compiled CPU program fuses a multiply-add (XLA contracts
 ``a * b + c`` on the CPU; PyTorch rounds the product and the sum
-separately on the CPU and the card alike).  Divisions by a constant go through a float32
-tensor, never a Python number: PyTorch's CUDA division by a host scalar
-multiplies by its reciprocal, which can differ from the true quotient
-in the last bit.
+separately on the CPU and the card alike).  Divisions by a constant go
+through a float32 tensor, never a Python number: PyTorch's CUDA division
+by a host scalar multiplies by its reciprocal, which can differ from the
+true quotient in the last bit.
+
+Entry points on ``device=`` (default: the CUDA card): ``sweep_scenarios``
+(the analytic model over a whole grid, or the fused ``SweepEngine`` with
+``timeline=``) and ``sweep_with_dependency_ensemble`` (the blackhole
+ensemble through the propagation kernel, or the engine with
+``temporal=True``); on the host: ``scenario_grid``,
+``operating_point_mask``, ``summarize_sweep`` and ``scenario_records``.
 
 Scenario axes:
   traffic_mult        surviving-region traffic multiplier (paper: 2.0)
@@ -26,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import zlib
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -143,6 +150,17 @@ def scenario_grid(traffic_mult=(1.6, 1.8, 2.0, 2.2),
     rows = list(itertools.product(*axes.values()))
     cols = np.asarray(rows, np.float64).T
     return {k: cols[i] for i, k in enumerate(axes)}
+
+
+def operating_point_mask(grid: Dict[str, np.ndarray]) -> np.ndarray:
+    """Boolean mask selecting the paper's operating point in a scenario
+    grid: 2x traffic, normal preheat, full burst, full cloud quota, full
+    eviction — the single scenario the event-driven orchestrator runs."""
+    return ((np.asarray(grid["traffic_mult"]) == 2.0)
+            & (np.asarray(grid["burst_delay_s"]) == 270.0)
+            & (np.asarray(grid["burst_availability"]) == 1.0)
+            & (np.asarray(grid["cloud_quota_frac"]) == 1.0)
+            & (np.asarray(grid["evict_fraction"]) == 1.0))
 
 
 def _div(x: torch.Tensor, v: float) -> torch.Tensor:
@@ -294,3 +312,132 @@ def analytic_consts(agg: FleetAggregates, *, ao_buffer=None,
     if spawn_mult is not None:
         out["spawn_mult"] = f(spawn_mult)
     return out
+
+
+def sweep_scenarios(agg: FleetAggregates,
+                    grid: Optional[Dict[str, np.ndarray]] = None,
+                    dep_broken_frac: Optional[np.ndarray] = None,
+                    timeline: Optional[object] = None,
+                    ts: Optional[np.ndarray] = None,
+                    device=None) -> Dict[str, np.ndarray]:
+    """Evaluate the failover model over every scenario on ``device``
+    (default: the CUDA card), the whole grid in one pass.
+
+    dep_broken_frac: optional per-scenario fraction of critical services
+    the dependency-graph blackhole propagation says break (see
+    ``sweep_with_dependency_ensemble``); defaults to 0 everywhere.
+
+    timeline: optional ``timeline_sim.TimelineConfig`` — runs the fused
+    ``SweepEngine`` instead, which adds the ``t_``-prefixed temporal
+    verdicts to the analytic ones.  ``ts`` overrides the default
+    2h/240-step grid."""
+    from repro_torch.core.timeline_sim import validate_grid
+    grid = grid if grid is not None else scenario_grid()
+    n = validate_grid(grid)
+    if timeline is not None:
+        from repro_torch.core.sweep_engine import SweepEngine
+        eng = SweepEngine(agg, timeline, ts=ts, device=device)
+        return eng.run(grid, dep_broken_frac=dep_broken_frac)
+    dev = resolve_device(device)
+    consts = analytic_consts(agg, device=dev)
+    up = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+    params = {k: up(v) for k, v in grid.items()}
+    if dep_broken_frac is None:
+        dep_broken_frac = np.zeros(n)
+    params["dep_broken_frac"] = up(dep_broken_frac)
+    out = _scenario_outcome(consts, params)
+    result = {k: v.cpu().numpy() for k, v in out.items()}
+    result.update({k: np.asarray(v) for k, v in grid.items()})
+    return result
+
+
+def sweep_with_dependency_ensemble(fs: FleetState,
+                                   grid: Optional[Dict[str, np.ndarray]]
+                                   = None,
+                                   seed: int = 0,
+                                   temporal: bool = False,
+                                   region: Optional[object] = None,
+                                   ts: Optional[np.ndarray] = None,
+                                   device=None) -> Dict[str, np.ndarray]:
+    """Scenario sweep with the dependency layer closed in, on ``device``
+    (default: the CUDA card): each scenario's ``evict_fraction`` sets its
+    blackhole intensity (shared uniform draws, so equal fractions share
+    one dark set and differing fractions give nested sets); one batched
+    multi-hop propagation certifies the whole ensemble and the
+    per-scenario broken-critical fractions feed the availability
+    estimate and SLA verdicts.
+
+    temporal=True runs the fused ``SweepEngine`` instead (sizing a
+    region for ``fs`` unless ``region`` is given), which folds the same
+    propagation verdicts into the availability trace and adds the
+    ``t_``-prefixed temporal verdicts.  Each stage draws from its own
+    ``stage_seed`` of the one campaign seed."""
+    from repro_torch.graph import CallGraph
+    grid = grid if grid is not None else scenario_grid()
+    graph = CallGraph.from_fleet_state(fs)
+    agg = FleetAggregates.from_fleet_state(fs)
+    if temporal:
+        from repro_torch.core.sweep_engine import SweepEngine
+        from repro_torch.core.timeline_sim import config_for_fleet
+        timeline = config_for_fleet(fs, region=region)
+        eng = SweepEngine(agg, timeline, graph=graph,
+                          seed=stage_seed(seed, "sweep-engine"), ts=ts,
+                          device=device)
+        return eng.run(grid)
+    from repro_torch.graph import blackhole_ensemble
+    ens = blackhole_ensemble(graph,
+                             seed=stage_seed(seed, "blackhole-ensemble"),
+                             fractions=np.asarray(grid["evict_fraction"]),
+                             device=device)
+    result = sweep_scenarios(agg, grid,
+                             dep_broken_frac=ens["broken_critical_frac"],
+                             device=device)
+    # int32, matching the fused temporal path's device-computed counts
+    result["dep_n_broken_critical"] = np.asarray(ens["n_broken_critical"],
+                                                 np.int32)
+    result["dep_n_dark"] = np.asarray(ens["n_dark"], np.int32)
+    return result
+
+
+def summarize_sweep(result: Dict[str, np.ndarray]) -> Dict[str, object]:
+    n = len(result["sla_ok"])
+    ok = int(result["sla_ok"].sum())
+    out = {
+        "n_scenarios": n,
+        "n_sla_ok": ok,
+        "sla_ok_fraction": ok / max(1, n),
+        "availability_min": float(result["availability"].min()),
+        "availability_mean": float(result["availability"].mean()),
+        "worst_rl_done_min": float(result["rl_done_s"].max() / 60.0),
+        "worst_util_peak": float(result["util_peak"].max()),
+    }
+    if "dep_ok" in result:
+        out["n_dep_ok"] = int(result["dep_ok"].sum())
+        out["worst_dep_broken_frac"] = float(
+            result["dep_broken_frac"].max())
+    if "t_sla_ok" in result:        # temporal verdicts present
+        finite = result["t_rl_done_s"][np.isfinite(result["t_rl_done_s"])]
+        out["n_t_sla_ok"] = int(result["t_sla_ok"].sum())
+        out["n_analytic_temporal_agree"] = int(
+            (result["sla_ok"] == result["t_sla_ok"]).sum())
+        out["t_availability_mean_min"] = float(
+            result["t_availability_mean"].min())
+        out["t_worst_finite_rl_done_min"] = (
+            float(finite.max() / 60.0) if len(finite) else float("nan"))
+        out["t_n_rl_never_restored"] = int(
+            np.isinf(result["t_rl_done_s"]).sum())
+        out["t_peak_cloud_cores_max"] = float(
+            result["t_peak_cloud_cores"].max())
+    return out
+
+
+def scenario_records(result: Dict[str, np.ndarray]) -> list:
+    """Per-scenario verdict rows (JSON-serializable) for the bench log."""
+    keys = ["traffic_mult", "burst_delay_s", "burst_availability",
+            "cloud_quota_frac", "overcommit_factor", "evict_fraction",
+            "burst_full_s", "rl_done_s", "util_peak", "availability",
+            "ao_ok", "rl_ok", "util_ok", "sla_ok"]
+    n = len(result["sla_ok"])
+    return [{k: (bool(result[k][i]) if result[k].dtype == bool
+                 else round(float(result[k][i]), 6)) for k in keys}
+            for i in range(n)]

@@ -23,7 +23,7 @@ floats can differ in the last bit where the reference's CPU program
 fuses a multiply-add).  The card's run and the port's CPU run differ
 only in ``t_availability_mean``.
 
-Not ported yet: ``soft_tau`` (ROADMAP Queue A item 5), multi-device
+Not ported yet: ``soft_tau`` (ROADMAP Queue A item 2), multi-device
 sharding, and ``compiled_variants``: the port compiles no program per
 shape, so it sets neither ``ufa_sweep_compiled_variants`` nor
 ``ufa_sweep_compile_misses_total``.
@@ -185,7 +185,7 @@ class SweepEngine:
         if soft_tau is not None:
             raise NotImplementedError(
                 "soft_tau: the soft relaxation is not ported yet "
-                "(ROADMAP Queue A item 5)")
+                "(ROADMAP Queue A item 2)")
         grid = scenario_grid() if grid is None else grid
         n = validate_grid(grid)
         shape = bucket_shape(n, self.chunk)

@@ -1,35 +1,47 @@
-"""Array-native discrete-time failover timeline: summary verdicts for a
-batch of scenarios (hard path).
+"""Array-native discrete-time failover timeline: per-step traces and
+summary verdicts for a batch of scenarios (hard path).
 
 Port of ``repro/core/timeline_sim.py``.  The reference scans a step
 function over the 240-step grid per scenario; here the per-step series
-(``_instant_core``) is closed-form in ``t`` once a scenario's schedule
-(``_schedule``) is known, so it is evaluated for the whole ``(S, T)``
-slab at once, with no Python loop over steps, and the scan carry becomes
-one call of the verdict-reduction kernel (``kernels/ufa/reduce.py``).
-Every op of the schedule, the series and ``_finalize`` is the
-reference's op on float32 tensors, in the reference's order: booleans
-and restore times are exact, the availability integral is a float32 sum
-in another order (float32-tight), and other floats match to the last
-bit, within which the reference's compiled CPU program can differ where
-it fuses a multiply-add.
+(``_instant_core``, and ``_instant`` on top of it for the traces) is
+closed-form in ``t`` once a scenario's schedule (``_schedule``) is
+known, so it is evaluated for the whole ``(S, T)`` slab at once, with
+no Python loop over steps.  The scan carry (the reference's ``_carry0``
+/ ``_carry_step``) is not written as a loop either: it is one call of
+the verdict-reduction kernel (``kernels/ufa/reduce.py``:
+``timeline_reduce``, with ``ref_timeline_reduce`` its plain version on
+the CPU) over the same core series, so a sweep's summary is bit for bit
+the same with and without traces.  Every op of the schedule, the series
+and ``_finalize`` is the reference's op on float32 tensors, in the
+reference's order: booleans, counts and restore times are exact, the
+availability integral is a float32 sum in another order
+(float32-tight), and other floats match to the last bit, within which
+the reference's compiled CPU program can differ where it fuses a
+multiply-add.  Divisions by a constant go through a float32 tensor
+(``scenarios._div``).
 
+Entry points: ``simulate_timeline`` (one scenario, any increasing time
+grid), ``sweep_timeline`` (a grid, in chunks of the engine's ``CHUNK``
+scenarios, with or without traces), ``timeline_verdicts`` (one
+scenario's summary) and ``summarize_timeline_sweep`` (host).
 Aggregation semantics and the ``EPS_T`` time tolerance are the
-reference's (see its module docstring).  Not ported yet: the per-step
-trace outputs (``_instant``, ``simulate_timeline``, ``sweep_timeline``)
-and the soft relaxation (``tau``).
+reference's (see its module docstring).  Not ported yet: the soft
+relaxation (``tau``, ROADMAP Queue A item 2).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import time
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.fleet_state import (AM, AO, POOL_OVERCOMMIT,
                                           POOL_STATELESS, RL, TM)
+from repro_torch.core.scenarios import _div, scenario_grid
 from repro_torch.core.tiers import (QOS_EVICT_UTILIZATION, RTO_SECONDS,
                                     FailureClass, Tier)
 from repro_torch.kernels.backend import resolve_device
@@ -269,6 +281,7 @@ def _schedule(c: Dict, p: Dict) -> Dict:
 
     burst_cap = c["burst_cap_full"] * p["burst_availability"]
     ramp_total = burst_cap / _max(c["spawn_rate"], 1e-9)
+    tick_s = _div(ramp_total, 10.0)
     burst_full_t = p["burst_delay_s"] + ramp_total
 
     n_am_waves = torch.ceil(c["am_envs"] / c["mbb_parallelism"])
@@ -307,7 +320,7 @@ def _schedule(c: Dict, p: Dict) -> Dict:
         torch.maximum(rl_last_wave_t,
                       torch.where(total_cloud > 1e-6, cloud_arrival_t, 0.0)))
 
-    return {"burst_cap": burst_cap,
+    return {"burst_cap": burst_cap, "tick_s": tick_s,
             "cap_scale": cap_scale, "stateless_eff": stateless_eff,
             "storm_refrac": p.get("storm_refrac", 0.0),
             "storm_t0": p.get("storm_t0_s", 1800.0),
@@ -342,9 +355,10 @@ def _storm_darkness(s: Dict, t):
 
 def _instant_core(c: Dict, p: Dict, s: Dict, t) -> Dict:
     """The per-step series the scan carry consumes (availability, the
-    demand-model utilization, the cloud draw, per-tier live cores),
-    elementwise: ``p``/``s`` leaves of shape ``(S, 1)`` against ``t`` of
-    shape ``(1, T)`` give ``(S, T)`` series and ``tier_live`` of shape
+    demand-model utilization, the cloud draw, per-tier live cores) plus
+    the intermediates the trace-only extras derive from, elementwise:
+    ``p``/``s`` leaves of shape ``(S, 1)`` against ``t`` of shape
+    ``(1, T)`` give ``(S, T)`` series and ``tier_live`` of shape
     ``(S, T, R)``."""
     mult = p["traffic_mult"]
     evicted = (t >= c["kill_s"] - EPS_T)
@@ -420,8 +434,72 @@ def _instant_core(c: Dict, p: Dict, s: Dict, t) -> Dict:
         term = c["tier_class"][:, k] * frac[..., None]
         tier_live = term if tier_live is None else tier_live + term
 
-    return {"availability": availability, "util_model": util_model,
-            "cloud_used": cloud_prov, "tier_live": tier_live}
+    return {"e": e, "evicted": evicted, "am_envs_moved": am_envs_moved,
+            "am_moved": am_moved, "ao_scaled": ao_scaled,
+            "ao_live": ao_live, "rl_restored": rl_restored,
+            "rl_burst": rl_burst, "rl_live": rl_live, "tm_live": tm_live,
+            "am_steady_cores": am_steady_cores,
+            "cloud_used": cloud_prov, "util_model": util_model,
+            "availability": availability, "tier_live": tier_live}
+
+
+def _instant(c: Dict, p: Dict, s: Dict, t, k: Dict) -> Dict:
+    """All per-step series (the reference's ``_instant``): the core
+    series ``k`` of ``_instant_core(c, p, s, t)`` plus the trace-only
+    extras (pool accounting, env counts, the conversion ramp, physical
+    utilization), in the same ``(S, 1)`` against ``(1, T)`` layout."""
+    mult = p["traffic_mult"]
+    e = k["e"]
+
+    # burst conversion ramp (10 spawner ticks, orchestrator semantics)
+    ticks = torch.clamp(torch.floor((t - p["burst_delay_s"] + EPS_T)
+                                    / _max(s["tick_s"], 1e-9)), 0.0, 10.0)
+    burst_online = _div(s["burst_cap"] * ticks, 10.0)
+    burst_capacity = torch.where(t >= p["burst_delay_s"] - EPS_T,
+                                 s["burst_cap"], 0.0)
+
+    ao_extra = torch.where(k["ao_scaled"], s["ao_need"], 0.0)
+
+    # placed-pool accounting
+    steady_used = (c["steady_used0"] - e * c["sl_preempt_cores"]
+                   - k["am_moved"] * s["am_release_frac"] + ao_extra)
+    overcommit_used = c["overcommit_used0"] - e * c["oc_preempt_cores"]
+    burst_used = k["am_moved"] + k["rl_burst"]
+
+    # env-count series (orchestrator snapshot names); round half to even
+    # like jnp.round
+    d_rl_t = torch.where(k["evicted"], p.get("rl_evict_delta", 0.0), 0.0)
+    d_tm_t = torch.where(k["evicted"], p.get("tm_evict_delta", 0.0), 0.0)
+    am_bursted = k["am_envs_moved"]
+    am_steady = c["am_envs"] - am_bursted
+    rl_bursted = torch.round(s["rl_envs_evicted"] * k["rl_restored"]
+                             / _max(s["rl_need"], 1e-9))
+    rl_not_bursted = torch.round((e + d_rl_t) * c["rl_envs"]) - rl_bursted
+    rl_t_steady = torch.round((1.0 - e) * (c["rl_envs"] + c["tm_envs"])
+                              - (d_rl_t * c["rl_envs"]
+                                 + d_tm_t * c["tm_envs"]))
+    terminated = torch.round((e + d_tm_t) * c["tm_envs"])
+
+    # utilization, orchestrator-mirror (traffic multiplier on survivors)
+    pre_steady = ((c["rl"] + c["tm"]) * (1.0 - e)
+                  - (c["rl"] * d_rl_t + c["tm"] * d_tm_t))
+    busy = (k["ao_live"] * _DEMAND_CRIT * mult
+            + k["am_steady_cores"] * _DEMAND_CRIT * mult
+            + pre_steady * _DEMAND_PRE)
+    utilization = _min(
+        busy / _max(c["phys_cores"] * s["cap_scale"], 1.0), 1.0)
+
+    return {"steady_used": steady_used, "overcommit_used": overcommit_used,
+            "burst_capacity": burst_capacity, "burst_online": burst_online,
+            "burst_used": burst_used, "cloud_used": k["cloud_used"],
+            "ao_live": k["ao_live"], "am_live": c["am"] + 0.0 * t,
+            "rl_live": k["rl_live"], "tm_live": k["tm_live"],
+            "am_steady": am_steady, "am_bursted": am_bursted,
+            "rl_bursted": rl_bursted, "rl_not_bursted": rl_not_bursted,
+            "rl_t_steady": rl_t_steady, "terminated": terminated,
+            "utilization": utilization, "util_model": k["util_model"],
+            "availability": k["availability"],
+            "tier_live": k["tier_live"]}
 
 
 def _finalize(c: Dict, p: Dict, s: Dict, carry: Dict, ts) -> Dict:
@@ -466,18 +544,24 @@ def _finalize(c: Dict, p: Dict, s: Dict, carry: Dict, ts) -> Dict:
     }
 
 
-def timeline_verdicts_batch(c: Dict, p: Dict, ts: torch.Tensor) -> Dict:
-    """Summary verdicts for a BATCH of scenarios (every ``p`` leaf
-    ``(S,)`` float32, ``ts`` ``(T,)`` float32, all on one device): the
-    schedule and the per-step series for the whole ``(S, T)`` slab, the
-    carry reduced by ``timeline_reduce`` (the CUDA kernel on the card),
-    then ``_finalize``."""
-    from repro_torch.kernels.ufa.reduce import timeline_reduce
-
+def _series(c: Dict, p: Dict, ts: torch.Tensor):
+    """The schedule and the core series of a batch: ``p`` leaves
+    ``(S,)`` float32, ``ts`` ``(T,)`` float32, all on one device.
+    Returns the schedule, the ``(S, 1)`` views of ``p`` and of the
+    schedule, and the core series (``(S, T)`` or broadcastable to it)."""
     s = _schedule(c, p)
     col = lambda d: {k: (v[:, None] if torch.is_tensor(v) and v.dim() == 1
                          else v) for k, v in d.items()}
-    core = _instant_core(c, col(p), col(s), ts[None, :])
+    pc, sc = col(p), col(s)
+    return s, pc, sc, _instant_core(c, pc, sc, ts[None, :])
+
+
+def _summary(c: Dict, p: Dict, s: Dict, core: Dict, ts: torch.Tensor
+             ) -> Dict:
+    """The carry of the core series through ``timeline_reduce`` (the
+    CUDA kernel on the card), then ``_finalize``."""
+    from repro_torch.kernels.ufa.reduce import timeline_reduce
+
     S, T = p["traffic_mult"].shape[0], ts.shape[0]
     tc = c["tier_class"]
     tier_total = _max(tc[:, 0] + tc[:, 1] + tc[:, 2] + tc[:, 3], 1e-9)
@@ -487,3 +571,151 @@ def timeline_verdicts_batch(c: Dict, p: Dict, ts: torch.Tensor) -> Dict:
         (core["tier_live"] / tier_total).expand(S, T, -1), ts,
         thresh=RESTORE_THRESH)
     return _finalize(c, p, s, carry, ts)
+
+
+def timeline_verdicts_batch(c: Dict, p: Dict, ts: torch.Tensor) -> Dict:
+    """Summary verdicts for a BATCH of scenarios (every ``p`` leaf
+    ``(S,)`` float32, ``ts`` ``(T,)`` float32, all on one device): the
+    schedule and the per-step series for the whole ``(S, T)`` slab, the
+    carry reduced by ``timeline_reduce`` (the CUDA kernel on the card),
+    then ``_finalize``."""
+    s, _, _, core = _series(c, p, ts)
+    return _summary(c, p, s, core, ts)
+
+
+def _simulate(c: Dict, p: Dict, ts: torch.Tensor) -> Tuple[Dict, Dict]:
+    """A batch of scenarios (leaves as in ``timeline_verdicts_batch``):
+    returns (per-step traces, per-scenario summary/verdicts).  Traces are
+    ``(S, T)`` (``tier_live`` ``(S, T, R)``), some of them broadcast
+    views; the summary is ``timeline_verdicts_batch``'s, from the same
+    core series."""
+    s, pc, sc, core = _series(c, p, ts)
+    t = ts[None, :]
+    S, T = p["traffic_mult"].shape[0], ts.shape[0]
+    traces = {k: (v.expand(S, T, -1) if k == "tier_live"
+                  else v.expand(S, T))
+              for k, v in _instant(c, pc, sc, t, core).items()}
+    return traces, _summary(c, p, s, core, ts)
+
+
+def timeline_verdicts(c: Dict, p: Dict, ts: torch.Tensor, tau=None) -> Dict:
+    """Summary verdicts for ONE scenario (0-d ``p`` leaves), run as a
+    batch of one: the same ops as ``_simulate``'s summary."""
+    if tau is not None:
+        raise NotImplementedError(
+            "tau: the soft relaxation is not ported yet "
+            "(ROADMAP Queue A item 2)")
+    out = timeline_verdicts_batch(c, {k: v.reshape(1) for k, v in p.items()},
+                                  ts)
+    return {k: v[0] for k, v in out.items()}
+
+
+def _as_params(p: Dict[str, float], device) -> Dict[str, torch.Tensor]:
+    """A scenario's parameters as 0-d float32 tensors on ``device``."""
+    return {k: torch.tensor(np.float32(p[k]), device=device)
+            for k in PARAM_KEYS}
+
+
+def simulate_timeline(cfg: TimelineConfig,
+                      params: Optional[Dict[str, float]] = None,
+                      ts: Optional[np.ndarray] = None,
+                      device=None) -> Dict[str, np.ndarray]:
+    """Run ONE scenario timeline on ``device`` (default: the CUDA card);
+    returns ``{"t": ts, traces..., summary scalars...}`` as numpy.  ``ts``
+    may be any increasing grid — pass the orchestrator's snapshot times
+    to compare against its ``Timeline``."""
+    dev = resolve_device(device)
+    base = default_scenario(burst_delay_s=cfg.preheat_s)
+    params = dict(base, **(params or {}))
+    ts = default_ts() if ts is None else np.asarray(ts, np.float64)
+    p = {k: v.reshape(1) for k, v in _as_params(params, dev).items()}
+    traces, summary = _simulate(
+        cfg.as_consts(dev), p,
+        torch.from_numpy(ts.astype(np.float32)).to(dev))
+    out = {"t": ts}
+    out.update({k: v[0].cpu().numpy() for k, v in traces.items()})
+    out.update({k: v[0].cpu().numpy() for k, v in summary.items()})
+    return out
+
+
+def sweep_timeline(cfg: TimelineConfig,
+                   grid: Optional[Dict[str, np.ndarray]] = None,
+                   ts: Optional[np.ndarray] = None,
+                   dep_broken_frac: Optional[np.ndarray] = None,
+                   return_traces: bool = False,
+                   device=None) -> Dict[str, np.ndarray]:
+    """Temporal verdicts for every scenario in the grid on ``device``
+    (default: the CUDA card): per-scenario time-to-restore per tier,
+    availability integral vs 99.97%, peak on-demand cloud draw, and the
+    SLA verdict — plus the full per-step traces (``trace_<series>``,
+    and the grid ``t``) when ``return_traces``.
+
+    The grid runs in chunks of ``sweep_engine.CHUNK`` scenarios, the
+    last one short (no padding), so a chunk's working set stays near
+    100 MB at any grid size; each chunk's traces are copied into numpy
+    arrays allocated once for the whole grid.  ``grid`` defaults to
+    ``scenarios.scenario_grid()``; ``dep_broken_frac`` folds the
+    dependency-graph propagation verdicts into the availability trace."""
+    from repro_torch.core.sweep_engine import CHUNK
+    dev = resolve_device(device)
+    grid = scenario_grid() if grid is None else grid
+    n = validate_grid(grid)
+    cols = {k: np.asarray(grid[k], np.float32)
+            for k in PARAM_KEYS if k in grid}
+    if dep_broken_frac is None:
+        dep_broken_frac = grid.get("dep_broken_frac", np.zeros(n))
+    cols["dep_broken_frac"] = np.asarray(dep_broken_frac, np.float32)
+    defaults = default_scenario(burst_delay_s=cfg.preheat_s)
+    for k in PARAM_KEYS:                       # missing axes -> defaults
+        if k not in cols:
+            cols[k] = np.full(n, defaults[k], np.float32)
+    params = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    ts = default_ts() if ts is None else np.asarray(ts, np.float64)
+    tsd = torch.from_numpy(ts.astype(np.float32)).to(dev)
+    consts = cfg.as_consts(dev)
+    meter = obs.enabled()            # one branch per sweep — free off
+    t0 = time.perf_counter() if meter else 0.0
+    traces = None
+    chunks = []
+    for lo in range(0, n, CHUNK):
+        p = {k: v[lo:lo + CHUNK] for k, v in params.items()}
+        if not return_traces:
+            chunks.append(timeline_verdicts_batch(consts, p, tsd))
+            continue
+        tr, summary = _simulate(consts, p, tsd)
+        chunks.append(summary)
+        if traces is None:
+            traces = {k: np.empty((n,) + tuple(v.shape[1:]), np.float32)
+                      for k, v in tr.items()}
+        for k, v in tr.items():
+            torch.from_numpy(traces[k][lo:lo + CHUNK]).copy_(v)
+    out = {k: torch.cat([c[k] for c in chunks]).cpu().numpy()
+           for k in chunks[0]}
+    if return_traces:
+        out["t"] = ts
+        out.update({f"trace_{k}": v for k, v in traces.items()})
+    if meter:
+        dt = time.perf_counter() - t0
+        obs.inc("ufa_timeline_scenarios_total", n)
+        if dt > 0:
+            obs.set_gauge("ufa_timeline_scenarios_per_s", n / dt)
+    return out
+
+
+def summarize_timeline_sweep(result: Dict[str, np.ndarray]
+                             ) -> Dict[str, object]:
+    """Ensemble-level digest of a ``sweep_timeline`` result."""
+    n = len(result["sla_ok"])
+    finite_rl = result["rl_done_s"][np.isfinite(result["rl_done_s"])]
+    return {
+        "n_scenarios": n,
+        "n_sla_ok": int(result["sla_ok"].sum()),
+        "n_rl_rto_met": int(result["rl_rto_met"].sum()),
+        "availability_mean_min": float(result["availability_mean"].min()),
+        "availability_floor": float(result["availability_min"].min()),
+        "worst_finite_rl_done_min": (float(finite_rl.max() / 60.0)
+                                     if len(finite_rl) else float("nan")),
+        "n_rl_never_restored": int(np.isinf(result["rl_done_s"]).sum()),
+        "peak_cloud_cores_max": float(result["peak_cloud_cores"].max()),
+        "worst_util_peak": float(result["util_peak"].max()),
+    }

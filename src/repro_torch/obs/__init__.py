@@ -3,12 +3,12 @@
 Zero-dependency instrumentation substrate for the UFA repro: a labeled
 metrics registry ([`registry`](registry.py)), Chrome-trace span/event
 tracing for the discrete-event orchestration ([`trace`](trace.py)),
-multi-window multi-burn-rate SLO monitors ([`slo`](slo.py)), JAX-aware
+multi-window multi-burn-rate SLO monitors ([`slo`](slo.py)), device-aware
 pipeline profiling ([`profiler`](profiler.py)) and Prometheus/JSONL
 export ([`export`](export.py)).
 
-Importing this package pulls in **no** jax/numpy — ``slo``/``profiler``
-are imported explicitly by consumers that already depend on jax.  Core
+Importing this package pulls in **no** torch/numpy — ``slo``/``profiler``
+are imported explicitly by consumers that already depend on torch.  Core
 hot paths call the module-level helpers below, which no-op on a single
 bool when the plane is off::
 

@@ -29,6 +29,7 @@ from repro_torch.core.service import synthesize_fleet as port_synth  # noqa: E40
 from repro_torch.core.sweep_engine import SweepEngine  # noqa: E402
 from repro_torch.graph import CallGraph  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.obs import slo  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -115,6 +116,12 @@ def test_import_boundary_subprocess():
         import importlib, sys
         for m in {sorted(mods)!r}:
             importlib.import_module(m)
+        # the profiler's device sync imports torch where the reference's
+        # imports jax: run it, then look again
+        import torch
+        from repro_torch.obs.profiler import Profiler
+        with Profiler().phase("import-check", sync={{"x": torch.zeros(1)}}):
+            pass
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "repro" or m.startswith("repro."))
@@ -132,10 +139,17 @@ def test_import_boundary_subprocess():
             "repro_torch.kernels.ufa.ingest", "repro_torch.kernels.ops",
             "repro_torch.kernels.ref", "repro_torch.kernels.ssd_scan",
             "repro_torch.models.layers", "repro_torch.models.model",
-            "repro_torch.configs.mamba2_780m"} <= set(mods)
+            "repro_torch.configs.mamba2_780m",
+            "repro_torch.core.metrics", "repro_torch.core.eviction",
+            "repro_torch.core.canary", "repro_torch.core.drills",
+            "repro_torch.obs.slo", "repro_torch.obs.profiler",
+            "repro_torch.obs.export"} <= set(mods)
 
 
 def test_import_boundary_source_grep():
+    """No line of the port or of ``chip_smoke.py`` imports JAX or the
+    reference package, at module level or inside a function (the
+    reference's profiler imports jax lazily; the port's must not)."""
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)"
                      r"|from\s+repro(\.|\s)|import\s+jaxlib)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
@@ -146,6 +160,12 @@ def test_import_boundary_source_grep():
         with open(path) as fh:
             src = fh.read()
         assert not pat.search(src), path
+    assert {os.path.join(PORT, *m.split("/")) for m in (
+        "core/metrics.py", "core/eviction.py", "core/canary.py",
+        "core/drills.py", "obs/slo.py", "obs/profiler.py",
+        "obs/export.py")} <= set(files)
+    # the pattern sees an import inside a function
+    assert pat.search("def sync(tree):\n    import jax\n")
 
 
 def test_device_default_is_cuda_and_never_falls_back(monkeypatch):
@@ -161,6 +181,19 @@ def test_device_default_is_cuda_and_never_falls_back(monkeypatch):
         SweepEngine(agg, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         port_sc.analytic_consts(agg)
+    # the new entry points default to the card too
+    grid = port_sc.scenario_grid()
+    for call in (lambda: port_tl.sweep_timeline(cfg, grid),
+                 lambda: port_tl.sweep_timeline(cfg, grid,
+                                                return_traces=True),
+                 lambda: port_tl.simulate_timeline(cfg),
+                 lambda: port_sc.sweep_scenarios(agg, grid),
+                 lambda: port_sc.sweep_with_dependency_ensemble(fs, grid),
+                 lambda: port_sc.sweep_with_dependency_ensemble(
+                     fs, grid, temporal=True),
+                 lambda: slo.sweep_alerts(np.ones((2, 4)), np.arange(4.0))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
     with pytest.raises(ValueError):
         backend.resolve_device("meta")
     assert backend.resolve_device("cpu").type == "cpu"

@@ -146,7 +146,7 @@ def test_grid_validation_and_soft_tau(parts):
         eng.run({"trafic_mult": np.ones(4)})
     with pytest.raises(ValueError, match="empty"):
         eng.run({})
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
         eng.run(scenario_grid(), soft_tau=0.1)
 
 
