@@ -121,7 +121,26 @@ and last, with the metrics registry on:
      ``simulate_timeline`` at the snapshot times of a traced
      ``Orchestrator.failover()`` on a 0.02-scale fleet, card against
      CPU, then ``monitor_orchestrator`` and the Prometheus / JSONL
-     exports (under ``build/``) and the Chrome trace, validated.
+     exports (under ``build/``) and the Chrome trace, validated;
+  9. runs the control loop around the sweep on phase 3's fleet, with
+     inputs from seed 99: (a) the chaos campaign (``default_rays()``,
+     tol 1/256) on the fleet hardened by ``plan_hardening`` on the card,
+     against the same campaign on the CPU (statuses, brackets, probe rows
+     exact), a byte-identical second run, ``verify_report`` on a fresh
+     card engine and a tampered report refused; (b) 65,536 joint faults
+     from ``sample_faults`` on the card (marginal means within 0.01,
+     rank correlations within 0.03 of the copula's) through the
+     campaign's engine (16 timeline_reduce launches, one
+     fixed_point_ell), the first 4,096 rows against the CPU run; (c) a
+     uniform 3-region and a weighted 5-region topology through
+     ``expand_failures``, the engine and ``reduce_pattern_verdicts``,
+     card against CPU; (d) ``run(soft_tau=1e-3)`` on the default grid
+     thresholded against the hard booleans, the hard path bit-identical
+     after it, ``soft_loss`` and its gradient card against CPU,
+     ``optimize_capacity(mode="both")`` improved and verified, ms a
+     gradient step and a CEM generation, ``hardening_weights`` and the
+     weighted plan card against CPU; (e) ``recommend_factor`` card
+     against CPU on the same host draws.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
@@ -189,6 +208,8 @@ TRACE_SEED = 88             # phase 8: the campaign seed and sampled rows
 TRACE_ROWS = 4096           # phase 8: rows held against the CPU run
 ALERT_ROWS = (2048, 512)    # phase 8b: alerting rows held, other rows held
 MODEL_SEED = 15             # the random inputs of phase 6
+CHAOS_SEED = 99             # phase 9: the campaign seed and sampled faults
+CHAOS_FAULTS = 65_536       # phase 9b: sampled joint faults (16 chunks)
 MODEL7_SEED = 16            # phase 7's weights and tokens
 MODEL7_TOL = 1e-4           # phase 7a, card vs CPU: tests/test_torch_models
 DECODE_TOL = 2e-3           # phase 7b, of max|logit|: tests/test_models.py
@@ -2073,6 +2094,371 @@ def phase_traces(torch, device, fs, graph, agg, cfg, grid: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the chaos campaign, sampled faults, topologies, the soft path
+# and the optimizer, the overcommit simulator
+# ---------------------------------------------------------------------------
+
+
+def same_report(got, want, where: str) -> None:
+    """Campaign reports at trouble-free grades: statuses, brackets, probe
+    rows and every boolean exact; float verdicts rtol 1e-6,
+    ``t_availability_mean`` 1e-5."""
+    check((got.op_ok, got.n_evals, got.n_rounds, got.grid_equiv_evals)
+          == (want.op_ok, want.n_evals, want.n_rounds,
+              want.grid_equiv_evals), f"{where}: campaign totals differ")
+    for g, w in zip(got.rays, want.rays):
+        check((g.name, g.status, g.lo, g.hi, g.frontier_severity,
+               g.counterexample, g.n_probes)
+              == (w.name, w.status, w.lo, w.hi, w.frontier_severity,
+                  w.counterexample, w.n_probes),
+              f"{where}: ray {w.name} differs")
+    check(len(got.probe_log) == len(want.probe_log),
+          f"{where}: probe logs differ in length")
+    for i, (g, w) in enumerate(zip(got.probe_log, want.probe_log)):
+        check((g["ray"], g["severity"], g["ok"], g["row"])
+              == (w["ray"], w["severity"], w["ok"], w["row"]),
+              f"{where}: probe {i} differs")
+        for k, v in w["verdict"].items():
+            x = g["verdict"][k]
+            if isinstance(v, bool) or not np.isfinite(v):
+                check(x == v, f"{where}: probe {i} {k} {x} != {v}")
+                continue
+            rtol = AVAIL_MEAN_RTOL if k == "t_availability_mean" \
+                else F32_TIGHT
+            check(abs(x - v) <= rtol * abs(v),
+                  f"{where}: probe {i} {k} {x} vs {v} beyond rtol {rtol}")
+
+
+def spearman(a: np.ndarray, b: np.ndarray) -> float:
+    ra = np.argsort(np.argsort(a)).astype(np.float64)
+    rb = np.argsort(np.argsort(b)).astype(np.float64)
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def sweep_grades(got: dict, want: dict, grid: dict, where: str) -> None:
+    rtol = {k: F32_TIGHT for k, v in want.items() if v.dtype.kind == "f"}
+    rtol["t_availability_mean"] = AVAIL_MEAN_RTOL
+    for k in grid:
+        rtol[k] = 0.0
+    compare(got, want, rtol, where)
+
+
+def phase_chaos(torch, device, fs, graph, eng, card) -> dict:
+    """The chaos campaign, the sampled-fault sweep, N-region topologies,
+    the soft path and the capacity optimizer, and the overcommit
+    simulator on the card, each held against the port's CPU run; returns
+    the kernels' launches by path and the phase's numbers."""
+    import copy
+
+    from repro_torch import obs
+    from repro_torch.chaos import (RegionTopology, campaign_for_fleet,
+                                   expand_failures, reduce_pattern_verdicts,
+                                   sample_faults, verify_report)
+    from repro_torch.chaos.faults import DEFAULT_CORR_PAIRS
+    from repro_torch.core import overcommit_sim
+    from repro_torch.core.scenarios import scenario_grid
+    from repro_torch.graph import CallGraph
+    from repro_torch.graph.planner import plan_hardening
+    from repro_torch.kernels.ufa.propagation import fixed_point_ell
+    from repro_torch.kernels.ufa.reduce import timeline_reduce
+    from repro_torch.optim import capacity as cap
+
+    on_card = device.type == "cuda"   # a cpu rehearsal launches no kernel
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    launches, out = {}, {}
+
+    def counted(fn):
+        timeline_reduce.launches = 0
+        fixed_point_ell.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0, (timeline_reduce.launches,
+                                               fixed_point_ell.launches)
+
+    # (a) the campaign on phase 3's fleet, hardened on the card
+    t0 = time.perf_counter()
+    hfs = copy.deepcopy(fs)
+    plan = plan_hardening(graph, device=device)
+    hfs.edges.fail_open[graph.input_edge_indices(plan.hardened_edges)] = True
+    camp = campaign_for_fleet(hfs, seed=CHAOS_SEED, device=device)
+    log(f"phase 9a: {plan.n_hardened} edges hardened, campaign built "
+        f"(placement, call graph, engine) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    obs.default_registry().reset()
+    obs.enable()
+    rep, cold, (b1, b2) = counted(camp.run)
+    check(obs.value("ufa_chaos_evals_total") == rep.n_evals
+          and obs.value("ufa_chaos_rounds_total") == rep.n_rounds,
+          "campaign: metered evals or rounds differ from the report")
+    obs.disable()
+    launches["b1 campaign"], launches["b2 campaign"] = b1, b2
+    check((b1 > 0 and b2 > 0) or not on_card,
+          f"campaign launched timeline_reduce {b1}, fixed_point_ell {b2}")
+    check(rep.op_ok, "campaign: the hardened fleet fails its operating point")
+    statuses = [r.status for r in rep.rays]
+    check(len(rep.rays) == 8 and "localized" in statuses,
+          f"campaign: rays {statuses}")
+    camp2 = campaign_for_fleet(hfs, seed=CHAOS_SEED, device=device)
+    rep2, warm, _ = counted(camp2.run)
+    check(rep2.to_json(sort_keys=True) == rep.to_json(sort_keys=True),
+          "campaign: a second run is not byte-identical")
+    t0 = time.perf_counter()
+    cpu_camp = campaign_for_fleet(hfs, seed=CHAOS_SEED, device="cpu")
+    cpu_rep = cpu_camp.run()
+    cpu_s = time.perf_counter() - t0
+    same_report(rep, cpu_rep, "campaign vs cpu")
+    fresh = campaign_for_fleet(hfs, seed=CHAOS_SEED, device=device)
+    audit, verify_s, _ = counted(lambda: verify_report(rep, fresh.engine))
+    check(audit["n_probes"] == rep.n_evals and not audit["mismatches"],
+          "campaign: verify_report drifted")
+    tampered = copy.deepcopy(rep)
+    tampered.probe_log[-1]["verdict"]["availability"] += 0.5
+    try:
+        verify_report(tampered, fresh.engine)
+        check(False, "campaign: verify_report passed a tampered report")
+    except AssertionError:
+        pass
+    out["campaign"] = {
+        "n_evals": rep.n_evals, "n_rounds": rep.n_rounds,
+        "grid_equiv_evals": rep.grid_equiv_evals,
+        "speedup_vs_grid": rep.speedup_vs_grid,
+        "n_localized": rep.n_localized, "cold_s": round(cold, 4),
+        "warm_s": round(warm, 4), "verify_s": round(verify_s, 4),
+        "cpu_s": round(cpu_s, 2), "b1": b1, "b2": b2}
+    log(f"phase 9a ok: campaign {json.dumps(out['campaign'])}; rays "
+        + ", ".join(f"{r.name} {r.status}"
+                    + (f" {r.frontier_severity:.4f}"
+                       if r.frontier_severity is not None else "")
+                    for r in rep.rays)
+        + f"; card == cpu (statuses, brackets, {len(rep.probe_log)} probe "
+        f"rows), byte-identical rerun, verify_report passes on a fresh "
+        f"engine and refuses a tampered report [{card}]")
+
+    # (b) sampled joint faults through the campaign's engine
+    t0 = time.perf_counter()
+    faults = sample_faults(CHAOS_SEED, CHAOS_FAULTS, device=device)
+    sample_s = time.perf_counter() - t0
+    sev, fams = faults["severity"], faults["families"]
+    idx = {name: j for j, name in enumerate(fams)}
+    means = sev.mean(axis=0)
+    check(np.all(np.abs(means - 0.5) < 0.01),
+          f"sampled faults: marginal means {means}")
+    ranks = {}
+    for (a, b), rho in DEFAULT_CORR_PAIRS.items():
+        want = 6.0 / np.pi * np.arcsin(rho / 2.0)
+        got = spearman(sev[:, idx[a]], sev[:, idx[b]])
+        ranks[f"{a}~{b}"] = round(got, 4)
+        check(abs(got - want) < 0.03,
+              f"sampled faults: rank correlation {a}~{b} {got:.4f}, "
+              f"copula {want:.4f}")
+    free = spearman(sev[:, idx["preheat_stall"]],
+                    sev[:, idx["burst_shortfall"]])
+    ranks["preheat_stall~burst_shortfall"] = round(free, 4)
+    check(abs(free) < 0.03, f"sampled faults: free pair rank {free:.4f}")
+    grid = faults["grid"]
+    res, cold_f, (b1, b2) = counted(lambda: camp.engine.run(grid))
+    launches["b1 sampled faults"], launches["b2 sampled faults"] = b1, b2
+    chunks = -(-CHAOS_FAULTS // 4096)
+    check((b1 == chunks and b2 == 1) or not on_card,
+          f"sampled faults: timeline_reduce {b1} (want {chunks}), "
+          f"fixed_point_ell {b2} (want 1)")
+    again, warm_f, _ = counted(lambda: camp.engine.run(grid))
+    for k in res:
+        check(np.array_equal(res[k], again[k], equal_nan=True),
+              f"sampled faults: {k} differs between runs")
+    rows = min(TRACE_ROWS, CHAOS_FAULTS)
+    head = {k: v[:rows] for k, v in grid.items()}
+    t0 = time.perf_counter()
+    cpu = cpu_camp.engine.run(head)
+    cpu_f = time.perf_counter() - t0
+    sweep_grades({k: v[:rows] for k, v in res.items()}, cpu, head,
+                 "sampled faults vs cpu")
+    out["sampled faults"] = {
+        "n": CHAOS_FAULTS, "sample_s": round(sample_s, 4),
+        "cold_s": round(cold_f, 4), "warm_s": round(warm_f, 4),
+        "scen_per_s_warm": round(CHAOS_FAULTS / warm_f, 1),
+        "n_sla_ok": int((res["sla_ok"] & res["t_sla_ok"]).sum()),
+        "b1": b1, "b2": b2, "cpu_s": round(cpu_f, 2), "ranks": ranks}
+    log(f"phase 9b ok: sampled faults {json.dumps(out['sampled faults'])};"
+        f" marginal means {np.round(means, 4).tolist()}; first {rows} rows"
+        f" == cpu [{card}]")
+    del res, again, faults, sev
+
+    # (c) N-region topologies
+    rng = np.random.default_rng(CHAOS_SEED)
+    topo3 = RegionTopology.uniform(3)
+    names = tuple(f"region-{i}" for i in range(5))
+    topo5 = RegionTopology(weights=tuple(float(w) for w in
+                                         rng.random(5) + 0.2), names=names)
+    pats = np.array([[r in (a, b) for r in range(5)]
+                     for a in range(5) for b in range(a + 1, 5)])
+    topo_out = []
+    for topo, failed, degr in (
+            (topo3, topo3.single_failures(), None),
+            (topo5, pats, rng.random(pats.shape) * 0.5)):
+        tgrid, pid, rid = expand_failures(topo, failed, degr)
+        gres, gpu_s, (b1, _) = counted(lambda: camp.engine.run(tgrid))
+        cres = cpu_camp.engine.run(tgrid)
+        sweep_grades(gres, cres, tgrid, f"topology {topo.n} vs cpu")
+        g = reduce_pattern_verdicts(gres, pid, topo, rid)
+        c = reduce_pattern_verdicts(cres, pid, topo, rid)
+        check(np.array_equal(g["sla_ok"], c["sla_ok"])
+              and np.array_equal(g["worst_region"], c["worst_region"]),
+              f"topology {topo.n}: pattern verdicts differ from the cpu")
+        check(np.allclose(g["availability"], c["availability"], rtol=1e-6,
+                          atol=0), f"topology {topo.n}: availability")
+        topo_out.append({"regions": topo.n, "patterns": len(failed),
+                         "rows": len(pid), "n_ok": int(g["sla_ok"].sum()),
+                         "s": round(gpu_s, 4), "b1": b1})
+    out["topologies"] = topo_out
+    log(f"phase 9c ok: topologies {json.dumps(topo_out)}, card == cpu "
+        f"[{card}]")
+
+    # (d) the soft path on phase 3's engine (and the campaign's, whose
+    # hardened fleet passes near the availability threshold), and the
+    # optimizer
+    dgrid = scenario_grid()
+    margins = []
+    for name, e in (("phase 3", eng), ("campaign", camp.engine)):
+        hard, _, _ = counted(lambda: e.run(dgrid))
+        soft, soft_s, (b1, _) = counted(lambda: e.run(dgrid, soft_tau=1e-3))
+        after = e.run(dgrid)
+        n_bool = 0
+        for k, v in hard.items():
+            check(np.array_equal(v, after[k], equal_nan=True),
+                  f"soft ({name}): hard {k} differs after a soft run")
+            if v.dtype == np.bool_:
+                n_bool += 1
+                flips = np.flatnonzero((soft[k] >= 0.5) != v)
+                check(flips.size == 0, f"soft ({name}): {k} thresholded "
+                      f"differs from the hard verdict in rows "
+                      f"{flips[:8].tolist()}")
+        margins.append(float(np.abs(hard["t_availability_mean"]
+                                    - (0.9997 - 5e-5)).min()))
+    launches["b1 soft run"] = b1
+    margin = min(margins)
+    base_c = cap.DesignBase.from_fleet_state(fs)
+    knobs = dict(buffer=0.6, promote=(0.4, 0.3, 0.2), overcommit=1.4,
+                 ramp=0.9, evict_lambda=0.2)
+    ts_np = np.asarray(eng.ts, np.float32)
+    grads = {}
+    for dev in (device, torch.device("cpu")):
+        b = base_c.as_arrays(dev)
+        cols = cap._grid_cols(cap.certification_grid(), dev)
+        ts = torch.from_numpy(ts_np).to(dev)
+        for tau in (1.0, 0.1):
+            loss, g = cap._soft_loss_grad(
+                cap.make_knobs(**knobs, device=dev), b, cols, ts,
+                torch.tensor(tau, device=dev),
+                torch.tensor(200.0, device=dev))
+            grads[(dev.type, tau)] = (float(loss),
+                                      {k: v.cpu().numpy()
+                                       for k, v in g.items()})
+    for tau in (1.0, 0.1):
+        (lc, gc), (lp, gp) = grads[("cpu", tau)], grads[(device.type, tau)]
+        check(abs(lp - lc) <= 1e-4 * abs(lc),
+              f"soft_loss tau {tau}: card {lp} vs cpu {lc}")
+        # at tau 1 the eviction-order and promotion components of the
+        # availability term are float32 cancellation noise (tests/
+        # test_torch_capacity.py says why): held where the gradient is
+        # signal
+        keys = ("buffer", "overcommit", "ramp") if tau == 1.0 else tuple(gc)
+        for k in keys:
+            check(np.allclose(gp[k], gc[k], rtol=1e-4, atol=1e-12),
+                  f"soft_loss grad tau {tau} {k}: card {gp[k]} vs "
+                  f"cpu {gc[k]}")
+    # ms per gradient step and per CEM generation, B1 per generation
+    b = base_c.as_arrays(device)
+    cols = cap._grid_cols(cap.certification_grid(), device)
+    ts = torch.from_numpy(ts_np).to(device)
+    kn = cap.legacy_knobs(device)
+    tau, pen = (torch.tensor(v, device=device) for v in (0.3, 200.0))
+    cap._soft_loss_grad(kn, b, cols, ts, tau, pen)
+    _, step_s, (b1_step, _) = counted(lambda: [cap._soft_loss_grad(
+        kn, b, cols, ts, tau, pen) for _ in range(10)])
+    n = len(cols["traffic_mult"])
+    from repro_torch.core.sweep_engine import bucket_shape
+    shape = bucket_shape(n)
+    total = shape[0] * shape[1]
+    pch = {k: torch.cat([v, v[-1:].repeat(total - n)]).reshape(shape)
+           for k, v in cols.items()}
+    mask = torch.zeros(total, device=device)
+    mask[:n] = 1.0
+    mask = mask.reshape(shape)
+    pop = cap._flatten_knobs(kn)[None, :] + torch.randn(
+        (48, 7), generator=torch.Generator().manual_seed(CHAOS_SEED)
+    ).to(device)
+    cap._cem_scores(pop, b, pch, mask, ts, pen)
+    _, gen_s, (b1_gen, _) = counted(lambda: [cap._cem_scores(
+        pop, b, pch, mask, ts, pen) for _ in range(3)])
+    launches["b1 CEM generation"] = b1_gen // 3
+    check(b1_gen // 3 == -(-48 * total // 4096) or not on_card,
+          f"CEM: {b1_gen // 3} timeline_reduce launches a generation")
+    opt, opt_s, (b1_opt, b2_opt) = counted(
+        lambda: cap.optimize_capacity(fs, mode="both", device=device))
+    v = opt.verification
+    check(opt.improved and v["all_ok"],
+          f"optimize_capacity: improved {opt.improved}, verification {v}")
+    vd, _, (b1_v, _) = counted(lambda: cap.verify_design(
+        {k: torch.as_tensor(np.asarray(x, np.float32)).to(device)
+         for k, x in opt.design.items()}, device=device))
+    launches["b1 verify_design"] = b1_v
+    check(vd["all_ok"], "verify_design of the optimum on the card failed")
+    w = cap.hardening_weights(fs, graph, device=device)
+    w_cpu = cap.hardening_weights(fs, graph, device="cpu")
+    check(np.allclose(w, w_cpu, rtol=1e-4, atol=0),
+          "hardening_weights: card vs cpu beyond rtol 1e-4")
+    fallback = bool(np.allclose(
+        w, fs.spec_cores / fs.spec_cores[graph.critical].mean(), rtol=1e-6))
+    t0 = time.perf_counter()
+    wplan = plan_hardening(graph, service_weights=w, device=device)
+    wplan_s = time.perf_counter() - t0
+    cpu_plan = plan_hardening(graph, service_weights=w_cpu, device="cpu")
+    same_plan(wplan, cpu_plan, "weighted plan vs cpu")
+    out["soft"] = {"soft_run_s": round(soft_s, 4), "n_bool_keys": n_bool,
+                   "avail_margin_min": margin, "b1": launches["b1 soft run"]}
+    out["optimizer"] = {
+        "start_multiple": round(opt.start_multiple, 4),
+        "multiple": round(opt.provisioning_multiple, 4),
+        "all_ok": v["all_ok"], "s": round(opt_s, 2),
+        "ms_per_grad_step": round(step_s * 100.0, 3),
+        "b1_per_grad_step": b1_step // 10,
+        "ms_per_cem_generation": round(gen_s * 1e3 / 3, 3),
+        "b1_per_cem_generation": b1_gen // 3, "b1": b1_opt, "b2": b2_opt,
+        "t_availability_mean_min": v["t_availability_mean_min"],
+        "weights_fallback": fallback, "weighted_plan_edges":
+            wplan.n_hardened, "weighted_plan_s": round(wplan_s, 3)}
+    log(f"phase 9d ok: soft {json.dumps(out['soft'])}: thresholded == hard "
+        f"on {n_bool} boolean keys, hard path bit-identical after; "
+        f"soft_loss and grad card == cpu; optimizer "
+        f"{json.dumps(out['optimizer'])}; hardening_weights card == cpu, "
+        f"weighted plan == cpu [{card}]")
+
+    # (e) the overcommit simulator
+    _, oc_cold, _ = counted(lambda: overcommit_sim.recommend_factor(
+        device=device))
+    rec, oc_warm, _ = counted(lambda: overcommit_sim.recommend_factor(
+        device=device))
+    rec_cpu = overcommit_sim.recommend_factor(device="cpu")
+    d = np.abs(np.asarray(rec["violation_rates"])
+               - np.asarray(rec_cpu["violation_rates"]))
+    check(d.max() <= 1e-4 and rec["recommended"] == rec_cpu["recommended"]
+          and rec["safe"] == rec_cpu["safe"],
+          f"overcommit: card {rec['recommended']} vs cpu "
+          f"{rec_cpu['recommended']}, rates differ by {d.max()}")
+    out["overcommit"] = {"recommended": rec["recommended"],
+                         "safe": rec["safe"],
+                         "max_rate_diff": float(d.max()),
+                         "cold_ms": round(oc_cold * 1e3, 3),
+                         "warm_ms": round(oc_warm * 1e3, 3)}
+    log(f"phase 9e ok: overcommit {json.dumps(out['overcommit'])}, card == "
+        f"cpu on the same host draws [{card}]")
+    return {"launches": launches, "numbers": out}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
@@ -2319,6 +2705,25 @@ def main() -> int:
         "ensemble (phase 8c)": traced["b2 ensemble"],
         "temporal ensemble (phase 8c)": traced["b2 ensemble temporal"]})
     k_prop["launches"] = traced["b2 ensemble"]
+
+    # phase 9: the chaos campaign, sampled faults, topologies, the soft
+    # path and the optimizer, the overcommit simulator, B1 and B2 counted
+    t0 = time.perf_counter()
+    chaos = phase_chaos(torch, device, fs, graph, eng, card)
+    log(f"phase 9 ok: {time.perf_counter() - t0:.2f} s, launches "
+        f"{json.dumps(chaos['launches'])} [{card}]")
+    ln = chaos["launches"]
+    k_reduce["launches_by_path"].update({
+        "chaos campaign (phase 9a)": ln["b1 campaign"],
+        "sampled faults (phase 9b)": ln["b1 sampled faults"],
+        "soft run (phase 9d)": ln["b1 soft run"],
+        "CEM generation (phase 9d)": ln["b1 CEM generation"],
+        "verify_design (phase 9d)": ln["b1 verify_design"]})
+    k_reduce["launches"] = ln["b1 campaign"]
+    k_prop["launches_by_path"].update({
+        "chaos campaign (phase 9a)": ln["b2 campaign"],
+        "sampled faults (phase 9b)": ln["b2 sampled faults"]})
+    k_prop["launches"] = ln["b2 campaign"]
 
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",

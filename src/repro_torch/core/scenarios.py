@@ -170,9 +170,17 @@ def _div(x: torch.Tensor, v: float) -> torch.Tensor:
 
 
 def _scenario_outcome(consts: Dict[str, torch.Tensor],
-                      p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                      p: Dict[str, torch.Tensor],
+                      tau=None) -> Dict[str, torch.Tensor]:
     """SLA outcome of a batch of scenarios (every ``p`` leaf ``(S,)``
-    float32; ``consts`` float32 scalars on the same device)."""
+    float32; ``consts`` float32 scalars, or ``(S,)`` per-row tensors, on
+    the same device).  ``tau`` (a float32 tensor, opt-in): the boolean
+    verdicts become sigmoid indicators of the signed margins and
+    ``sla_ok`` their product (``timeline_sim.soft_ge``), differentiable;
+    ``None`` runs the original ops."""
+    from repro_torch.core.timeline_sim import (SOFT_DEP_SCALE,
+                                               SOFT_FRAC_SCALE,
+                                               SOFT_TIME_SCALE, soft_ge)
     ao, am = consts["ao"], consts["am"]
     rl, tm = consts["rl"], consts["tm"]
     am_envs, rl_envs = consts["am_envs"], consts["rl_envs"]
@@ -184,6 +192,8 @@ def _scenario_outcome(consts: Dict[str, torch.Tensor],
     # additive so a present-but-zero knob is exact
     d_rl = p.get("rl_evict_delta", 0.0)
     d_tm = p.get("tm_evict_delta", 0.0)
+    if tau is not None:
+        cs = 0.01 * (ao + am + rl + tm)      # cores-margin scale (soft)
 
     # region sizing (same rule as RegionCapacity.for_fleet, model="ufa");
     # an optional ``ao_buffer`` const replaces the 2x Always-On buffer
@@ -195,7 +205,10 @@ def _scenario_outcome(consts: Dict[str, torch.Tensor],
     oc_cap = stateless * (oc - 1.0)
     preempt_resident = ((rl + tm) * (1.0 - evict)
                         - (rl * d_rl + tm * d_tm))
-    preempt_fit = preempt_resident <= oc_cap + 1e-6
+    if tau is None:
+        preempt_fit = preempt_resident <= oc_cap + 1e-6
+    else:
+        preempt_fit = soft_ge(oc_cap + 1e-6, preempt_resident, cs, tau)
 
     # batch -> burst conversion (same sizing rule as for_fleet); an
     # optional ``spawn_mult`` const scales the spawner throughput
@@ -220,7 +233,11 @@ def _scenario_outcome(consts: Dict[str, torch.Tensor],
     free_after_am = stateless - ao - am + am_in_burst
     ao_need = ao * (mult - 1.0)
     ao_short = torch.clamp(ao_need - free_after_am, min=0.0)
-    ao_ok = ao_short <= 1e-6
+    if tau is None:
+        ao_ok = ao_short <= 1e-6
+    else:
+        # signed margin (ao_short is one-sided)
+        ao_ok = soft_ge(free_after_am + 1e-6, ao_need, cs, tau)
 
     # Restore-Later: burst first, cloud (with provisioning latency) last
     burst_left = torch.clamp(burst_cap - am_in_burst, min=0.0)
@@ -235,13 +252,22 @@ def _scenario_outcome(consts: Dict[str, torch.Tensor],
     cloud_delay = cloud_grant / cloud_rate
     rl_waves = torch.ceil(_div(rl_envs, _MBB_PARALLELISM))
     rl_done_s = burst_full_s + rl_waves * _RL_WAVE_S + cloud_delay
-    rl_ok = (rl_down <= 1e-6) & (rl_done_s <= _RL_RTO_S)
+    if tau is None:
+        rl_ok = (rl_down <= 1e-6) & (rl_done_s <= _RL_RTO_S)
+    else:
+        # signed fit margin: quota vs. what must come from the cloud, the
+        # +1.0-core shift keeping the fully-served point in the ok tail
+        rl_ok = (soft_ge(quota + 1.0, cloud_need, cs, tau)
+                 * soft_ge(_RL_RTO_S, rl_done_s, SOFT_TIME_SCALE, tau))
 
     # surviving-region utilization at the post-migration peak
     busy = (ao * mult * 0.62 + am_in_burst * 0.0
             + am_stranded * 0.62 * mult + preempt_resident * 0.35)
     util_peak = busy / torch.clamp(stateless, min=1.0)
-    util_ok = util_peak <= _QOS_EVICT
+    if tau is None:
+        util_ok = util_peak <= _QOS_EVICT
+    else:
+        util_ok = soft_ge(_QOS_EVICT, util_peak, SOFT_FRAC_SCALE, tau)
 
     # availability estimate: AO shortfall bites immediately; unrestored RL
     # degrades the fraction of critical flows that depend on it; every
@@ -250,16 +276,29 @@ def _scenario_outcome(consts: Dict[str, torch.Tensor],
     rl_exposure = 0.1 * rl_down / torch.clamp(rl, min=1.0)
     window_frac = torch.clamp(_div(rl_done_s, _RL_RTO_S), max=1.0)
     dep_broken = p["dep_broken_frac"]
-    dep_ok = dep_broken <= 0.0
+    if tau is None:
+        dep_ok = dep_broken <= 0.0
+        util_pen = torch.where(util_ok, 0.0, 1e-4)
+    else:
+        # a 1e-7 threshold with a 1e-6 scale keeps "nothing broken" in the
+        # ok tail and the smallest nonzero fraction firmly refused
+        dep_ok = soft_ge(1e-7, dep_broken, SOFT_DEP_SCALE, tau)
+        util_pen = 1e-4 * (1.0 - util_ok)
     availability = (_BASE_AVAILABILITY
                     - 0.5 * ao_short / crit
                     - rl_exposure * window_frac
                     - 0.5 * dep_broken
-                    - torch.where(util_ok, 0.0, 1e-4))
+                    - util_pen)
     availability = torch.clamp(availability, 0.0, 1.0)
-    sla_ok = (ao_ok & rl_ok & preempt_fit & dep_ok
-              & (am_done_s <= 30.0 * 60.0)
-              & (burst_full_s <= 20.0 * 60.0) & util_ok)
+    if tau is None:
+        sla_ok = (ao_ok & rl_ok & preempt_fit & dep_ok
+                  & (am_done_s <= 30.0 * 60.0)
+                  & (burst_full_s <= 20.0 * 60.0) & util_ok)
+    else:
+        sla_ok = (ao_ok * rl_ok * preempt_fit * dep_ok
+                  * soft_ge(30.0 * 60.0, am_done_s, SOFT_TIME_SCALE, tau)
+                  * soft_ge(20.0 * 60.0, burst_full_s, SOFT_TIME_SCALE, tau)
+                  * util_ok)
     # cascading dependency storm: the storm's dark set re-breaks
     # ``storm_broken_frac`` of criticals with pulse amplitude
     # ``storm_refrac``; the closed form charges the exposure once
@@ -268,8 +307,12 @@ def _scenario_outcome(consts: Dict[str, torch.Tensor],
         storm_exposure = storm_frac * p["storm_refrac"]
         availability = torch.clamp(availability - 0.5 * storm_exposure,
                                    0.0, 1.0)
-        storm_ok = storm_exposure <= 1e-6
-        sla_ok = sla_ok & storm_ok
+        if tau is None:
+            storm_ok = storm_exposure <= 1e-6
+            sla_ok = sla_ok & storm_ok
+        else:
+            storm_ok = soft_ge(1e-7, storm_exposure, SOFT_DEP_SCALE, tau)
+            sla_ok = sla_ok * storm_ok
     out = {
         "dep_broken_frac": dep_broken,
         "dep_ok": dep_ok,

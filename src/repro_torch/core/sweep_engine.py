@@ -1,6 +1,6 @@
 """Fused sweep engine: full-peak scenario ensembles on one CUDA card.
 
-Port of ``repro/core/sweep_engine.py`` (hard path, one device).  For
+Port of ``repro/core/sweep_engine.py`` (one device).  For
 every scenario of a grid, on the device and with no host round trip
 between stages:
 
@@ -23,10 +23,13 @@ floats can differ in the last bit where the reference's CPU program
 fuses a multiply-add).  The card's run and the port's CPU run differ
 only in ``t_availability_mean``.
 
-Not ported yet: ``soft_tau`` (ROADMAP Queue A item 2), multi-device
-sharding, and ``compiled_variants``: the port compiles no program per
-shape, so it sets neither ``ufa_sweep_compiled_variants`` nor
-``ufa_sweep_compile_misses_total``.
+``run(soft_tau=...)`` evaluates the soft relaxation instead (sigmoid
+verdict indicators, the capacity optimizer's objective; see
+``timeline_sim``); the hard path is untouched by it.
+
+Not ported yet: multi-device sharding, and ``compiled_variants``: the
+port compiles no program per shape, so it sets neither
+``ufa_sweep_compiled_variants`` nor ``ufa_sweep_compile_misses_total``.
 """
 
 from __future__ import annotations
@@ -65,6 +68,28 @@ def bucket_shape(n: int, chunk: int = CHUNK) -> tuple[int, int]:
     if n <= chunk:
         return 1, max(MIN_BUCKET, _pow2_ceil(n))
     return _pow2_ceil(-(-n // chunk)), chunk
+
+
+def _fused_verdicts_block(consts: Dict, p: Dict, ts: torch.Tensor,
+                          temporal: bool, tau=None) -> Dict:
+    """One block of scenarios (every ``p`` leaf ``(S,)`` float32), all
+    stages: the analytic verdicts plus (``temporal``) the ``t_``-prefixed
+    timeline verdicts, the carry through ``timeline_reduce``.  ``tau`` (a
+    float32 tensor, or None) runs the soft relaxation in both stages."""
+    out = dict(scenario_outcome(consts["a"], p, tau))
+    if temporal:
+        tsum = timeline_verdicts_batch(consts["t"], p, ts, tau)
+        out.update({f"t_{k}": v for k, v in tsum.items()})
+    return out
+
+
+def _fused_verdicts(consts: Dict, p: Dict, ts: torch.Tensor,
+                    temporal: bool, tau=None) -> Dict:
+    """ONE scenario (0-d ``p`` leaves), all stages, as a block of one."""
+    out = _fused_verdicts_block(consts, {k: v.reshape(1)
+                                         for k, v in p.items()},
+                                ts, temporal, tau)
+    return {k: v[0] for k, v in out.items()}
 
 
 class SweepEngine:
@@ -135,15 +160,6 @@ class SweepEngine:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _block(self, p: Dict[str, torch.Tensor], temporal: bool) -> Dict:
-        """One chunk: the analytic verdicts plus (``temporal``) the
-        ``t_``-prefixed timeline verdicts."""
-        out = dict(scenario_outcome(self.consts["a"], p))
-        if temporal:
-            tsum = timeline_verdicts_batch(self.consts["t"], p, self._ts_dev)
-            out.update({f"t_{k}": v for k, v in tsum.items()})
-        return out
-
     # ------------------------------------------------------------------
     def dep_fractions(self, fractions: np.ndarray
                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -181,12 +197,14 @@ class SweepEngine:
         verdicts (unless ``temporal=False``), the grid axes, and — when
         the engine has a graph and no explicit ``dep_broken_frac`` — the
         ``dep_n_broken_critical`` / ``dep_n_dark`` propagation verdicts.
-        The grid is validated up front (``timeline_sim.validate_grid``)."""
-        if soft_tau is not None:
-            raise NotImplementedError(
-                "soft_tau: the soft relaxation is not ported yet "
-                "(ROADMAP Queue A item 2)")
+        The grid is validated up front (``timeline_sim.validate_grid``).
+
+        ``soft_tau`` (opt-in): evaluate the soft relaxation at that
+        temperature; verdict keys come back as sigmoid indicators in
+        [0, 1] (float32, not bool).  ``None`` runs the hard path."""
         grid = scenario_grid() if grid is None else grid
+        tau = (None if soft_tau is None else
+               torch.tensor(soft_tau, dtype=torch.float32, device=self.device))
         n = validate_grid(grid)
         shape = bucket_shape(n, self.chunk)
         meter = obs.enabled()
@@ -226,7 +244,8 @@ class SweepEngine:
             if use_dep:
                 p["dep_broken_frac"] = frac[inv[i]]
                 p["storm_broken_frac"] = frac[storm_inv[i]]
-            out = self._block(p, temporal)
+            out = _fused_verdicts_block(self.consts, p, self._ts_dev,
+                                        temporal, tau)
             if use_dep:
                 out["dep_n_broken_critical"] = counts[inv[i]]
                 out["dep_n_dark"] = n_dark[inv[i]]

@@ -1,5 +1,5 @@
 """Array-native discrete-time failover timeline: per-step traces and
-summary verdicts for a batch of scenarios (hard path).
+summary verdicts for a batch of scenarios, hard or soft-relaxed.
 
 Port of ``repro/core/timeline_sim.py``.  The reference scans a step
 function over the 240-step grid per scenario; here the per-step series
@@ -25,8 +25,20 @@ grid), ``sweep_timeline`` (a grid, in chunks of the engine's ``CHUNK``
 scenarios, with or without traces), ``timeline_verdicts`` (one
 scenario's summary) and ``summarize_timeline_sweep`` (host).
 Aggregation semantics and the ``EPS_T`` time tolerance are the
-reference's (see its module docstring).  Not ported yet: the soft
-relaxation (``tau``, ROADMAP Queue A item 2).
+reference's (see its module docstring).
+
+The soft relaxation (``tau``, for the capacity optimizer) is the
+reference's: every hard comparison becomes ``soft_ge``, a sigmoid of the
+signed margin.  The reference's soft mode runs its sequential scan; here
+the soft ``(S, T)`` series is built under ``tau``, its first crossings
+(no gradient) come from the same ``timeline_reduce`` as the hard path,
+and the float accumulators that carry gradients are torch ops
+(``_soft_carry``), the availability integral summed in the scan's
+order.  ``tau=None`` runs the hard ops, unchanged.
+
+The constants ``c`` are one fleet's 0-d tensors, or per-row ``(S,)``
+tensors with ``tier_class`` ``(S, R, C)`` (the optimizer's CEM scores a
+whole population of designs as one batch).
 """
 
 from __future__ import annotations
@@ -55,6 +67,34 @@ RESTORE_THRESH = 0.999          # tier counts as restored above this frac
 
 _DEMAND_CRIT = 0.62             # demand per live core, critical classes
 _DEMAND_PRE = 0.35              # demand per live core, preemptible classes
+
+# ---------------------------------------------------------------------------
+# Soft relaxation (opt-in): sigmoid-smoothed SLA indicators.  Passing a
+# temperature ``tau`` replaces every hard comparison with a sigmoid of the
+# signed margin, in units of a per-quantity scale times tau; the verdicts
+# become floats in (0, 1) that tend to the exact booleans as tau -> 0.
+# ``tau=None`` (the default) runs the original ops.
+# ---------------------------------------------------------------------------
+
+SOFT_TIME_SCALE = 60.0          # seconds: deadline margins
+SOFT_FRAC_SCALE = 0.02          # utilization / fraction margins
+SOFT_AVAIL_SCALE = 2.0e-5       # availability-integral margins
+SOFT_CORES_FRAC = 0.01          # cores margins, as a fraction of fleet total
+SOFT_DEP_SCALE = 1e-6           # broken-critical fractions (quantized at
+                                # 1/n_crit, so the pass threshold sits at
+                                # 1e-7 — below one broken service)
+
+
+def soft_ge(x, y, scale, tau):
+    """Soft indicator of ``x >= y``: sigmoid of the margin in units of
+    ``scale * tau`` (``tau`` a float32 tensor).  Tends to the hard
+    boolean as ``tau -> 0``."""
+    return torch.sigmoid((x - y) / (scale * tau))
+
+
+def _cores_scale(c: Dict):
+    """Cores-margin scale for one fleet: 1% of the class total."""
+    return SOFT_CORES_FRAC * (c["ao"] + c["am"] + c["rl"] + c["tm"])
 
 
 # ---------------------------------------------------------------------------
@@ -269,9 +309,12 @@ def _min(x, v):
     return torch.clamp(x, max=v)
 
 
-def _schedule(c: Dict, p: Dict) -> Dict:
+def _schedule(c: Dict, p: Dict, tau=None) -> Dict:
     """Scenario-level event times and capacity splits, elementwise over
-    the scenario axis (every ``p`` leaf has the same shape)."""
+    the scenario axis (every ``p`` leaf has the same shape).  ``tau``: the
+    feasibility booleans (``ao_ok``) become sigmoid indicators and the
+    infinite ``rl_done_t`` on a cloud-quota shortfall a smooth finite
+    overrun; ``None`` runs the original ops."""
     mult = p["traffic_mult"]
     evict = p["evict_fraction"]
 
@@ -295,7 +338,11 @@ def _schedule(c: Dict, p: Dict) -> Dict:
     free_at_am_done = (stateless_eff
                        - (c["steady_used0"] - evict * c["sl_preempt_cores"]
                           - am_released))
-    ao_ok = ao_need <= free_at_am_done + 1e-6
+    if tau is None:
+        ao_ok = ao_need <= free_at_am_done + 1e-6
+    else:
+        ao_ok = soft_ge(free_at_am_done + 1e-6, ao_need, _cores_scale(c),
+                        tau)
     ao_short = _max(ao_need - free_at_am_done, 0.0)
 
     d_rl = p.get("rl_evict_delta", 0.0)
@@ -315,12 +362,27 @@ def _schedule(c: Dict, p: Dict) -> Dict:
     cloud_arrival_t = cloud_start_t + total_cloud / _max(c["cloud_rate"],
                                                          1e-9)
     rl_shortfall = _max(rl_need - burst_free_rl - quota_eff, 0.0)
-    rl_done_t = torch.where(
-        rl_shortfall > 1e-6, float("inf"),
-        torch.maximum(rl_last_wave_t,
-                      torch.where(total_cloud > 1e-6, cloud_arrival_t, 0.0)))
+    rl_ok_soft = None
+    if tau is None:
+        rl_done_t = torch.where(
+            rl_shortfall > 1e-6, float("inf"),
+            torch.maximum(rl_last_wave_t,
+                          torch.where(total_cloud > 1e-6, cloud_arrival_t,
+                                      0.0)))
+    else:
+        # the beyond-quota remainder provisions at the cloud rate (a
+        # finite, monotone overrun past the RTO), and the "any cloud at
+        # all" gate softens over ~1 core
+        cloud_gate = soft_ge(total_cloud, 0.5, 0.25, tau)
+        rl_done_t = (torch.maximum(rl_last_wave_t,
+                                   cloud_gate * cloud_arrival_t)
+                     + rl_shortfall / _max(c["cloud_rate"], 1e-2))
+        # the signed no-shortfall margin, folded into rl_rto_met
+        rl_ok_soft = soft_ge(0.0, rl_need - burst_free_rl - quota_eff,
+                             _cores_scale(c), tau)
 
     return {"burst_cap": burst_cap, "tick_s": tick_s,
+            "rl_ok_soft": rl_ok_soft,
             "cap_scale": cap_scale, "stateless_eff": stateless_eff,
             "storm_refrac": p.get("storm_refrac", 0.0),
             "storm_t0": p.get("storm_t0_s", 1800.0),
@@ -353,13 +415,14 @@ def _storm_darkness(s: Dict, t):
     return s["storm_refrac"] * env * gate
 
 
-def _instant_core(c: Dict, p: Dict, s: Dict, t) -> Dict:
+def _instant_core(c: Dict, p: Dict, s: Dict, t, tau=None) -> Dict:
     """The per-step series the scan carry consumes (availability, the
     demand-model utilization, the cloud draw, per-tier live cores) plus
     the intermediates the trace-only extras derive from, elementwise:
     ``p``/``s`` leaves of shape ``(S, 1)`` against ``t`` of shape
     ``(1, T)`` give ``(S, T)`` series and ``tier_live`` of shape
-    ``(S, T, R)``."""
+    ``(S, T, R)``.  ``tau`` softens the knob-dependent time gates and the
+    QoS penalty step; ``None`` runs the original ops."""
     mult = p["traffic_mult"]
     evicted = (t >= c["kill_s"] - EPS_T)
     e = torch.where(evicted, p["evict_fraction"], 0.0)
@@ -377,8 +440,13 @@ def _instant_core(c: Dict, p: Dict, s: Dict, t) -> Dict:
     am_moved = torch.minimum(am_attempt, s["burst_cap"])
 
     # Always-On in-place upscale at migration completion
-    ao_scaled = s["ao_ok"] & (t >= s["am_done_t"] - EPS_T)
-    ao_live = c["ao"] * torch.where(ao_scaled, mult, 1.0)
+    if tau is None:
+        ao_scaled = s["ao_ok"] & (t >= s["am_done_t"] - EPS_T)
+        ao_live = c["ao"] * torch.where(ao_scaled, mult, 1.0)
+    else:
+        ao_scaled = s["ao_ok"] * soft_ge(t, s["am_done_t"] - EPS_T,
+                                         SOFT_TIME_SCALE, tau)
+        ao_live = c["ao"] * (1.0 + ao_scaled * (mult - 1.0))
 
     # Restore-Later waves: burst first, the cloud batch after provisioning
     rl_waves_done = torch.minimum(
@@ -389,8 +457,12 @@ def _instant_core(c: Dict, p: Dict, s: Dict, t) -> Dict:
     rl_burst = torch.minimum(processed, s["burst_free_rl"])
     cloud_req = processed - rl_burst
     cloud_prov = torch.minimum(cloud_req, s["quota_eff"])
-    cloud_arrived = torch.where(t >= s["cloud_arrival_t"] - EPS_T,
-                                s["total_cloud"], 0.0)
+    if tau is None:
+        cloud_arrived = torch.where(t >= s["cloud_arrival_t"] - EPS_T,
+                                    s["total_cloud"], 0.0)
+    else:
+        cloud_arrived = s["total_cloud"] * soft_ge(
+            t, s["cloud_arrival_t"] - EPS_T, SOFT_TIME_SCALE, tau)
     cloud_live = torch.minimum(cloud_arrived, cloud_prov)
     storm_dark = _storm_darkness(s, t)
     rl_restored = (rl_burst + cloud_live) * (1.0 - storm_dark)
@@ -418,7 +490,12 @@ def _instant_core(c: Dict, p: Dict, s: Dict, t) -> Dict:
                         + p.get("tm_evict_delta", 0.0)) * c["tm"], 1e-9)
     dark_frac = (rl_down + tm_down) / dark_tot
     dep_pen = 0.5 * p["dep_broken_frac"] * dark_frac
-    util_pen = torch.where(util_model > QOS_EVICT_UTILIZATION, 1e-4, 0.0)
+    if tau is None:
+        util_pen = torch.where(util_model > QOS_EVICT_UTILIZATION, 1e-4,
+                               0.0)
+    else:
+        util_pen = 1e-4 * soft_ge(util_model, QOS_EVICT_UTILIZATION,
+                                  SOFT_FRAC_SCALE, tau)
     storm_pen = 0.5 * p.get("storm_broken_frac", 0.0) * storm_dark
     availability = torch.clamp(
         BASE_AVAILABILITY - ao_pen - rl_pen - dep_pen - util_pen
@@ -431,7 +508,7 @@ def _instant_core(c: Dict, p: Dict, s: Dict, t) -> Dict:
     tier_live = None
     for k in range(N_CLASSES):
         frac = class_live[k] / _max(class_total[k], 1e-9)
-        term = c["tier_class"][:, k] * frac[..., None]
+        term = c["tier_class"][..., k] * frac[..., None]
         tier_live = term if tier_live is None else tier_live + term
 
     return {"e": e, "evicted": evicted, "am_envs_moved": am_envs_moved,
@@ -502,8 +579,10 @@ def _instant(c: Dict, p: Dict, s: Dict, t, k: Dict) -> Dict:
             "tier_live": k["tier_live"]}
 
 
-def _finalize(c: Dict, p: Dict, s: Dict, carry: Dict, ts) -> Dict:
-    """Per-scenario summary/verdicts from the reduced carry."""
+def _finalize(c: Dict, p: Dict, s: Dict, carry: Dict, ts, tau=None) -> Dict:
+    """Per-scenario summary/verdicts from the reduced carry.  ``tau``
+    replaces the hard verdicts with sigmoid margins and the boolean AND
+    with a product of indicators; ``None`` runs the original ops."""
     span = _max(ts[-1] - ts[0], 1e-9)
     availability_mean = carry["avail_int"] / span
     time_to_restore = torch.where(carry["below_seen"], carry["restore_t"],
@@ -519,14 +598,32 @@ def _finalize(c: Dict, p: Dict, s: Dict, carry: Dict, ts) -> Dict:
                  + am_stranded * _DEMAND_CRIT * p["traffic_mult"]
                  + preempt_resident * _DEMAND_PRE)
     util_post = _min(busy_post / _max(s["stateless_eff"], 1.0), 1.0)
-    preempt_fit = preempt_resident <= oc_cap_s + 1e-6
-    dep_ok = p["dep_broken_frac"] <= 0.0
-    avail_ok = availability_mean >= BASE_AVAILABILITY - AVAIL_SLA_TOL
-    util_ok = util_post <= QOS_EVICT_UTILIZATION
-    rl_rto_met = s["rl_done_t"] <= c["rl_rto_s"] + EPS_T
-    sla_ok = (s["ao_ok"] & rl_rto_met & preempt_fit & dep_ok & avail_ok
-              & util_ok & (s["am_done_t"] <= 30.0 * 60.0)
-              & (s["burst_full_t"] <= 20.0 * 60.0))
+    if tau is None:
+        preempt_fit = preempt_resident <= oc_cap_s + 1e-6
+        dep_ok = p["dep_broken_frac"] <= 0.0
+        avail_ok = availability_mean >= BASE_AVAILABILITY - AVAIL_SLA_TOL
+        util_ok = util_post <= QOS_EVICT_UTILIZATION
+        rl_rto_met = s["rl_done_t"] <= c["rl_rto_s"] + EPS_T
+        sla_ok = (s["ao_ok"] & rl_rto_met & preempt_fit & dep_ok & avail_ok
+                  & util_ok & (s["am_done_t"] <= 30.0 * 60.0)
+                  & (s["burst_full_t"] <= 20.0 * 60.0))
+    else:
+        cs = _cores_scale(c)
+        preempt_fit = soft_ge(oc_cap_s + 1e-6, preempt_resident, cs, tau)
+        dep_ok = soft_ge(1e-7, p["dep_broken_frac"], SOFT_DEP_SCALE, tau)
+        avail_ok = soft_ge(availability_mean,
+                           BASE_AVAILABILITY - AVAIL_SLA_TOL,
+                           SOFT_AVAIL_SCALE, tau)
+        util_ok = soft_ge(QOS_EVICT_UTILIZATION, util_post,
+                          SOFT_FRAC_SCALE, tau)
+        rl_rto_met = (soft_ge(c["rl_rto_s"] + EPS_T, s["rl_done_t"],
+                              SOFT_TIME_SCALE, tau) * s["rl_ok_soft"])
+        sla_ok = (s["ao_ok"] * rl_rto_met * preempt_fit * dep_ok
+                  * avail_ok * util_ok
+                  * soft_ge(30.0 * 60.0, s["am_done_t"],
+                            SOFT_TIME_SCALE, tau)
+                  * soft_ge(20.0 * 60.0, s["burst_full_t"],
+                            SOFT_TIME_SCALE, tau))
     return {
         "burst_full_s": s["burst_full_t"], "am_done_s": s["am_done_t"],
         "rl_done_s": s["rl_done_t"], "rl_rto_met": rl_rto_met,
@@ -544,43 +641,90 @@ def _finalize(c: Dict, p: Dict, s: Dict, carry: Dict, ts) -> Dict:
     }
 
 
-def _series(c: Dict, p: Dict, ts: torch.Tensor):
+def _col(d: Dict) -> Dict:
+    """``(S, 1)`` views of a dict's per-row leaves (``(S, 1, R, C)`` for a
+    per-row ``tier_class``); 0-d leaves and the fleet's ``(R, C)``
+    ``tier_class`` stay as they are."""
+    return {k: (v[:, None] if torch.is_tensor(v) and (
+        v.dim() == 1 or (k == "tier_class" and v.dim() == 3)) else v)
+        for k, v in d.items()}
+
+
+def _series(c: Dict, p: Dict, ts: torch.Tensor, tau=None):
     """The schedule and the core series of a batch: ``p`` leaves
     ``(S,)`` float32, ``ts`` ``(T,)`` float32, all on one device.
     Returns the schedule, the ``(S, 1)`` views of ``p`` and of the
     schedule, and the core series (``(S, T)`` or broadcastable to it)."""
-    s = _schedule(c, p)
-    col = lambda d: {k: (v[:, None] if torch.is_tensor(v) and v.dim() == 1
-                         else v) for k, v in d.items()}
-    pc, sc = col(p), col(s)
-    return s, pc, sc, _instant_core(c, pc, sc, ts[None, :])
+    s = _schedule(c, p, tau)
+    pc, sc = _col(p), _col(s)
+    return s, pc, sc, _instant_core(_col(c), pc, sc, ts[None, :], tau)
 
 
-def _summary(c: Dict, p: Dict, s: Dict, core: Dict, ts: torch.Tensor
-             ) -> Dict:
+def _reduce(c: Dict, core: Dict, ts: torch.Tensor, S: int) -> Dict:
     """The carry of the core series through ``timeline_reduce`` (the
-    CUDA kernel on the card), then ``_finalize``."""
+    CUDA kernel on the card)."""
     from repro_torch.kernels.ufa.reduce import timeline_reduce
 
-    S, T = p["traffic_mult"].shape[0], ts.shape[0]
+    T = ts.shape[0]
     tc = c["tier_class"]
-    tier_total = _max(tc[:, 0] + tc[:, 1] + tc[:, 2] + tc[:, 3], 1e-9)
-    carry = timeline_reduce(
+    tier_total = _max(tc[..., 0] + tc[..., 1] + tc[..., 2] + tc[..., 3],
+                      1e-9)
+    if tier_total.dim() == 2:                 # per-row constants
+        tier_total = tier_total[:, None]
+    return timeline_reduce(
         core["availability"].expand(S, T), core["util_model"].expand(S, T),
         core["cloud_used"].expand(S, T),
         (core["tier_live"] / tier_total).expand(S, T, -1), ts,
         thresh=RESTORE_THRESH)
+
+
+def _summary(c: Dict, p: Dict, s: Dict, core: Dict, ts: torch.Tensor
+             ) -> Dict:
+    """``_reduce``, then ``_finalize``."""
+    carry = _reduce(c, core, ts, p["traffic_mult"].shape[0])
     return _finalize(c, p, s, carry, ts)
 
 
-def timeline_verdicts_batch(c: Dict, p: Dict, ts: torch.Tensor) -> Dict:
+def _soft_carry(c: Dict, core: Dict, ts: torch.Tensor, S: int) -> Dict:
+    """The soft path's carry: the first crossings (no gradient) from
+    ``timeline_reduce`` over the detached series, the float accumulators
+    as differentiable torch ops.  The availability integral is summed
+    step by step in float32, the reference scan's order, on every
+    device: the soft verdicts' sigmoid of its margin (at scale
+    ``SOFT_AVAIL_SCALE * tau``) turns one unit in the last place of the
+    mean into ~3e-3 of a logit at tau 1, so a reordered sum would show
+    in the verdicts and their gradients.  Min and max are exact in any
+    order."""
+    T = ts.shape[0]
+    series = {k: core[k].expand(S, T)
+              for k in ("availability", "util_model", "cloud_used")}
+    carry = _reduce({"tier_class": c["tier_class"].detach()},
+                    {**{k: v.detach() for k, v in series.items()},
+                     "tier_live": core["tier_live"].detach()}, ts, S)
+    avail = series["availability"]
+    dt = _max(torch.diff(ts, prepend=ts[:1]), 0.0)
+    avail_int = torch.zeros_like(avail[:, 0])
+    for t in range(T):
+        avail_int = avail_int + avail[:, t] * dt[t]
+    return {**carry, "avail_int": avail_int,
+            "avail_min": _min(avail.amin(dim=1), 1.0),
+            "util_peak": _max(series["util_model"].amax(dim=1), 0.0),
+            "cloud_peak": _max(series["cloud_used"].amax(dim=1), 0.0)}
+
+
+def timeline_verdicts_batch(c: Dict, p: Dict, ts: torch.Tensor,
+                            tau=None) -> Dict:
     """Summary verdicts for a BATCH of scenarios (every ``p`` leaf
     ``(S,)`` float32, ``ts`` ``(T,)`` float32, all on one device): the
     schedule and the per-step series for the whole ``(S, T)`` slab, the
     carry reduced by ``timeline_reduce`` (the CUDA kernel on the card),
-    then ``_finalize``."""
-    s, _, _, core = _series(c, p, ts)
-    return _summary(c, p, s, core, ts)
+    then ``_finalize``.  ``tau`` (a float32 tensor) runs the soft
+    relaxation, differentiable in ``c`` and ``p``."""
+    s, _, _, core = _series(c, p, ts, tau)
+    if tau is None:
+        return _summary(c, p, s, core, ts)
+    carry = _soft_carry(c, core, ts, p["traffic_mult"].shape[0])
+    return _finalize(c, p, s, carry, ts, tau)
 
 
 def _simulate(c: Dict, p: Dict, ts: torch.Tensor) -> Tuple[Dict, Dict]:
@@ -600,13 +744,10 @@ def _simulate(c: Dict, p: Dict, ts: torch.Tensor) -> Tuple[Dict, Dict]:
 
 def timeline_verdicts(c: Dict, p: Dict, ts: torch.Tensor, tau=None) -> Dict:
     """Summary verdicts for ONE scenario (0-d ``p`` leaves), run as a
-    batch of one: the same ops as ``_simulate``'s summary."""
-    if tau is not None:
-        raise NotImplementedError(
-            "tau: the soft relaxation is not ported yet "
-            "(ROADMAP Queue A item 2)")
+    batch of one: the same ops as ``_simulate``'s summary, or (``tau``,
+    a float32 tensor) the soft relaxation."""
     out = timeline_verdicts_batch(c, {k: v.reshape(1) for k, v in p.items()},
-                                  ts)
+                                  ts, tau)
     return {k: v[0] for k, v in out.items()}
 
 

@@ -3,7 +3,7 @@
 The port of ``repro/models/model.py``.  ``LMConfig`` is the reference's
 whole; the functions take its pure-SSM branch, and a config with
 attention or a feed-forward block raises ``NotImplementedError`` (those
-layers come with ROADMAP Queue A item 3).  The layer stack is a Python
+layers come with ROADMAP Queue A item 1).  The layer stack is a Python
 loop over the stacked leading axis of the params (the reference's
 ``lax.scan``), with no remat: it matters only for training.  Entry points
 that make tensors (``init_params``, ``init_decode_state``) take
@@ -166,7 +166,7 @@ def _require_pure_ssm(cfg: LMConfig) -> None:
             f"repro_torch.models runs the pure-SSM family only; {cfg.name} "
             f"(block={cfg.block!r}, d_ff={cfg.d_ff}, n_experts="
             f"{cfg.n_experts}) needs the attention, MLP or MoE layers of "
-            f"ROADMAP Queue A item 3")
+            f"ROADMAP Queue A item 1")
 
 
 # ---------------------------------------------------------------------------

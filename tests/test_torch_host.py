@@ -29,7 +29,10 @@ from repro_torch.core.service import synthesize_fleet as port_synth  # noqa: E40
 from repro_torch.core.sweep_engine import SweepEngine  # noqa: E402
 from repro_torch.graph import CallGraph  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
+from repro_torch import chaos  # noqa: E402
+from repro_torch.core import overcommit_sim  # noqa: E402
 from repro_torch.obs import slo  # noqa: E402
+from repro_torch.optim import capacity  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -143,7 +146,13 @@ def test_import_boundary_subprocess():
             "repro_torch.core.metrics", "repro_torch.core.eviction",
             "repro_torch.core.canary", "repro_torch.core.drills",
             "repro_torch.obs.slo", "repro_torch.obs.profiler",
-            "repro_torch.obs.export"} <= set(mods)
+            "repro_torch.obs.export",
+            "repro_torch.chaos", "repro_torch.chaos.faults",
+            "repro_torch.chaos.campaign", "repro_torch.chaos.report",
+            "repro_torch.chaos.topology",
+            "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.capacity",
+            "repro_torch.core.overcommit_sim"} <= set(mods)
 
 
 def test_import_boundary_source_grep():
@@ -163,7 +172,10 @@ def test_import_boundary_source_grep():
     assert {os.path.join(PORT, *m.split("/")) for m in (
         "core/metrics.py", "core/eviction.py", "core/canary.py",
         "core/drills.py", "obs/slo.py", "obs/profiler.py",
-        "obs/export.py")} <= set(files)
+        "obs/export.py", "chaos/__init__.py", "chaos/faults.py",
+        "chaos/campaign.py", "chaos/report.py", "chaos/topology.py",
+        "optim/__init__.py", "optim/adamw.py", "optim/capacity.py",
+        "core/overcommit_sim.py")} <= set(files)
     # the pattern sees an import inside a function
     assert pat.search("def sync(tree):\n    import jax\n")
 
@@ -191,7 +203,13 @@ def test_device_default_is_cuda_and_never_falls_back(monkeypatch):
                  lambda: port_sc.sweep_with_dependency_ensemble(fs, grid),
                  lambda: port_sc.sweep_with_dependency_ensemble(
                      fs, grid, temporal=True),
-                 lambda: slo.sweep_alerts(np.ones((2, 4)), np.arange(4.0))):
+                 lambda: slo.sweep_alerts(np.ones((2, 4)), np.arange(4.0)),
+                 lambda: chaos.sample_faults(0, 4),
+                 lambda: chaos.campaign_for_fleet(fs),
+                 lambda: capacity.optimize_capacity(fs, mode="grad"),
+                 lambda: capacity.hardening_weights(fs, None),
+                 lambda: capacity.make_knobs(),
+                 lambda: overcommit_sim.recommend_factor()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     with pytest.raises(ValueError):

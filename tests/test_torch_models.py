@@ -303,7 +303,7 @@ def test_other_families_raise(block, d_ff):
                  lambda: models.init_decode_state(cfg, 1, 4, device="cpu"),
                  lambda: models.forward({}, cfg, toks),
                  lambda: models.decode_step({}, cfg, None, toks[:, 0])):
-        with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        with pytest.raises(NotImplementedError, match="Queue A item 1"):
             call()
 
 

@@ -231,3 +231,29 @@ def test_graph_entry_points_raise_without_cuda(graphs, monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+@pytest.mark.parametrize("scale,seed", [(0.02, 7), (0.02, 1), (0.02, 3),
+                                        (0.05, 7), (0.05, 2), (0.05, 3)])
+def test_plan_hardening_float_weights_from_hardening_weights(scale, seed):
+    """The float-weight trap (ROADMAP, Known traps): the reference's
+    ``hardening_weights`` output, float32 weights that are not integers,
+    gives both planners the same edge sequence (float32 sums of the
+    weighted blast radius are taken in another order in the port)."""
+    from repro.core.service import synthesize_fleet as ref_synth
+    from repro.optim.capacity import hardening_weights
+    from repro_torch.core.service import synthesize_fleet
+    from repro_torch.graph import CallGraph
+
+    fs = ref_synth(scale=scale, seed=seed, as_arrays=True)
+    fs.apply_ufa_target_classes()
+    ref = RefGraph.from_fleet_state(fs)
+    w = hardening_weights(fs, ref)
+    assert w.dtype == np.float32 and not np.array_equal(w, np.round(w))
+    pfs = synthesize_fleet(scale=scale, seed=seed, as_arrays=True)
+    pfs.apply_ufa_target_classes()
+    port = CallGraph.from_fleet_state(pfs)
+    want = ref_planner.plan_hardening(ref, service_weights=w)
+    got = port_planner.plan_hardening(port, service_weights=w, device=CPU)
+    assert want.certified and want.n_hardened > 0
+    _same_plan(got, want)

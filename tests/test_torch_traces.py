@@ -241,10 +241,18 @@ def test_timeline_verdicts_one_scenario(fleets):
         assert got["time_to_restore_s"].shape == (7,)
         assert_grades({k: np.atleast_1d(v) for k, v in got.items()},
                       {k: np.atleast_1d(v) for k, v in want.items()})
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        port_tl.timeline_verdicts(pcfg.as_consts("cpu"),
-                                  port_tl._as_params(q, "cpu"),
-                                  torch.zeros(3), tau=0.1)
+    # tau no longer raises: the soft relaxation matches the reference's
+    for tau in (0.1, 1.0):
+        want = jax.jit(ref_tl.timeline_verdicts)(
+            cfg.as_consts(), ref_tl._as_params(q),
+            jnp.asarray(ts, jnp.float32), jnp.asarray(tau, jnp.float32))
+        got = port_tl.timeline_verdicts(
+            pcfg.as_consts("cpu"), port_tl._as_params(q, "cpu"),
+            torch.from_numpy(ts.astype(np.float32)),
+            torch.tensor(tau, dtype=torch.float32))
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(v),
+                                       rtol=1e-5, atol=1e-7, err_msg=k)
 
 
 def test_digests_and_mask_exact(fleets):
