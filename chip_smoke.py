@@ -140,7 +140,27 @@ and last, with the metrics registry on:
      ``optimize_capacity(mode="both")`` improved and verified, ms a
      gradient step and a CEM generation, ``hardening_weights`` and the
      weighted plan card against CPU; (e) ``recommend_factor`` card
-     against CPU on the same host draws.
+     against CPU on the same host draws;
+ 10. runs the attention, MoE and hybrid models through
+     ``repro_torch.models`` at full width, inputs from seed 26: (a) fp32
+     forwards with the depth cut (llama3.2-3b 2 layers B 1 x S 512,
+     gemma3-4b 6 layers S 1,280 where its 1,024 window bites, hymba-1.5b
+     4 layers S 1,280, phi3.5-moe 2 layers S 512), the card's hidden
+     states and last-position logits against the port's CPU run on the
+     same weights, and phi3.5-moe's expert ids and queue positions equal;
+     (b) fp32 teacher-forced decode against the forward (llama3.2-3b 2
+     layers B 2 x S 512, hymba-1.5b 4 layers S 1,280, past its window;
+     llama3.2-3b with the int8 cache, S 64, held at the reference's
+     0.05 of max|logit|), and one llama3.2-3b step under
+     ``set_sync_debug_mode("error")``; (c) bf16 from the port's seeded
+     init: the llama3.2-3b prefill of B 2 x S 4,096 through all 28
+     layers (B6 28, B4 57), its decode at B 8 against a 4,352-slot cache
+     at length 4,096 (B5 28 and B4 57 a step), the phi3.5-moe prefill
+     through 8 layers (B7 24, B6 8, B4 17; capacity 1,280) and the
+     hymba-1.5b prefill through all 32 layers (B6 32, B8 32, B4 97), each
+     with the counts zeroed just before and read just after, CUDA-event
+     ms, peak device memory, and one profiled run's idle share and each
+     model kernel's share of device time.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
@@ -156,7 +176,8 @@ outside its limit; decode at length 0 exactly zero; the fp32 SSD scan no
 further from a float64 evaluation than its plain version (or within
 1e-5 of it); the model's card forward within rtol = atol = 1e-4 of the
 CPU run and its teacher-forced decode within 2e-3 of max|logit| of the
-forward (the CPU tests' tolerances).  Any failure exits
+forward (the CPU tests' tolerances), an int8-cache decode within 0.05
+of max|logit|, and expert ids and positions exact.  Any failure exits
 non-zero.  The last two lines of
 standard output are a JSON object of the kernels' numbers and the JSON
 result line; without a CUDA device the script exits 2 and prints no
@@ -170,6 +191,7 @@ from __future__ import annotations
 import cProfile
 import dataclasses
 import gc
+import importlib
 import io
 import itertools
 import json
@@ -213,8 +235,36 @@ CHAOS_FAULTS = 65_536       # phase 9b: sampled joint faults (16 chunks)
 MODEL7_SEED = 16            # phase 7's weights and tokens
 MODEL7_TOL = 1e-4           # phase 7a, card vs CPU: tests/test_torch_models
 DECODE_TOL = 2e-3           # phase 7b, of max|logit|: tests/test_models.py
-PREFILL_SHAPE = (2, 4096)   # phase 7c: batch x sequence
+PREFILL_SHAPE = (2, 4096)   # phases 7c, 10c: batch x sequence
 DECODE_BATCH = 8
+MODEL10_SEED = 26           # phase 10's weights and tokens, one seed a run
+KVQ_REL_TOL = 0.05          # phase 10b, int8 cache, of max|logit|:
+#                             tests/test_models.py
+# phase 10a, card vs CPU in fp32: (config module, layers, batch, sequence)
+MODEL10_CARD_CPU = (("llama3_2_3b", 2, 1, 512),
+                    ("gemma3_4b", 6, 1, 1280),     # the 1,024 window bites
+                    ("hymba_1_5b", 4, 1, 1280),    # global layer 0, then windows
+                    ("phi3_5_moe_42b_a6_6b", 2, 1, 512))
+# phase 10b, fp32 decode vs forward: (module, layers, batch, sequence,
+# kv_quant, one step under set_sync_debug_mode("error"))
+MODEL10_DECODE = (("llama3_2_3b", 2, 2, 512, False, True),
+                  ("hymba_1_5b", 4, 1, 1280, False, False),
+                  ("llama3_2_3b", 2, 2, 64, True, False))
+# phase 10c, bf16 prefill of PREFILL_SHAPE: (label, module, layers, the
+# launches of one run); llama3.2-3b's decode follows its prefill.  Every
+# kernel call of these runs must be one that phase 6 holds against the
+# plain version (its last cases: phi3.5-moe's experts at capacity 1,280,
+# hymba-1.5b's attention and float32 SSD, the 4,352-slot decode cache,
+# the norms).  phi3.5-moe's 32 layers do not fit 80 GB in bf16 (~2.5 GB
+# a layer)
+MODEL10_PREFILL = (
+    ("llama3.2-3b prefill", "llama3_2_3b", 28,
+     {"flash_attention": 28, "rmsnorm": 57}),
+    ("phi3.5-moe prefill", "phi3_5_moe_42b_a6_6b", 8,
+     {"grouped_matmul": 24, "flash_attention": 8, "rmsnorm": 17}),
+    ("hymba-1.5b prefill", "hymba_1_5b", 32,
+     {"flash_attention": 32, "ssd_scan": 32, "rmsnorm": 97}),
+)
 # phase 6 float32 tolerances (rtol = atol): the reference's own,
 # tests/test_kernels.py
 MODEL_F32_TOL = {"flash_attention": 2e-5, "decode_attention": 3e-5,
@@ -1144,10 +1194,12 @@ def phase_harden(torch, device, fs, card: str) -> dict:
     return launches
 
 
-def profile_run(what: str, torch, fn, card: str) -> dict:
+def profile_run(what: str, torch, fn, card: str, stats=None) -> dict:
     """One profiled call of ``fn``: the kernel table and the device's
     busy time against the wall.  Returns device microseconds by kernel
-    name (empty when the trace holds no device time)."""
+    name (empty when the trace holds no device time); ``stats``, a dict,
+    receives ``busy_us``, ``wall_us`` and ``idle_share`` (None when not
+    measured)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1159,6 +1211,9 @@ def profile_run(what: str, torch, fn, card: str) -> dict:
     kernels_us = {e.key: e.self_device_time_total for e in events
                   if str(e.device_type).endswith("CUDA")}
     busy_us = sum(kernels_us.values())
+    if stats is not None:
+        stats.update(busy_us=busy_us, wall_us=wall_us, idle_share=(
+            1 - busy_us / wall_us if busy_us > 0 else None))
     table = events.table(sort_by="self_device_time_total", row_limit=25,
                          max_name_column_width=60)
     for line in table.splitlines():
@@ -1284,6 +1339,13 @@ def model_cases(torch, device):
                           reps=reps, check=check, shift=shift, truth=truth,
                           bf16_flops=bf16_flops, route=route))
 
+    def norm_case(label, R, D, dt):
+        x, s = randn(R, D, dtype=dt), randn(D, dtype=dt)
+        size = x.element_size()
+        add("rmsnorm", label, (x, s), {}, ref.ref_rmsnorm,
+            lambda x, s: F.rms_norm(x, (x.shape[-1],), s, 1e-6),
+            2 * R * D * size + D * size, 4 * R * D, dt, 50)
+
     # B4: llama3.2-3b hidden norm (B 4 x S 4,096 tokens), qwen3 qk-norm;
     # mamba2-780m's norms as phase 7c gives them: ln1 and final_norm at
     # d_model 1,536 and the gated norm at d_inner 3,072, over the prefill's
@@ -1300,11 +1362,7 @@ def model_cases(torch, device):
                                (8, 1536), bf16),
                               ("mamba2-780m gated norm, decode B 8",
                                (8, 3072), bf16)):
-        x, s = randn(R, D, dtype=dt), randn(D, dtype=dt)
-        size = x.element_size()
-        add("rmsnorm", label, (x, s), {}, ref.ref_rmsnorm,
-            lambda x, s: F.rms_norm(x, (x.shape[-1],), s, 1e-6),
-            2 * R * D * size + D * size, 4 * R * D, dt, 50)
+        norm_case(label, R, D, dt)
 
     def flash_case(label, B, S, H, d, causal, window, dt, reps):
         q, k, v = (randn(B, S, H, d, dtype=dt) for _ in range(3))
@@ -1499,7 +1557,60 @@ def model_cases(torch, device):
              20)
     decode_case("llama3.2-3b decode, int64 length", (8, 24, 8, 128, 8192),
                 6000, 0, bf16)
+
+    # every call phase 10c's bf16 models make, at its shape, dtype and
+    # options (phase 10c checks each call against these cases'
+    # signatures), drawn after every earlier case: B4 over the prefill's
+    # 2 x 4,096 tokens at llama3.2-3b's, phi3.5-moe's and hymba-1.5b's
+    # d_model and hymba's SSM inner width, and over llama's decode batch
+    for label, R, D in (("llama3.2-3b hidden norm, prefill", 8192, 3072),
+                        ("llama3.2-3b hidden norm, decode B 8", 8, 3072),
+                        ("phi3.5-moe hidden norm, prefill", 8192, 4096),
+                        ("hymba-1.5b hidden norm, prefill", 8192, 1600),
+                        ("hymba-1.5b SSM gated norm, prefill", 8192, 3200)):
+        norm_case(label, R, D, bf16)
+    # B6: phi3.5-moe (KV 8 repeated to 32 heads), hymba-1.5b's global
+    # layer 0 and its windowed layers (KV 5 repeated to 25 heads, d 64)
+    for args in (
+            ("phi3.5-moe prefill", 2, 4096, 32, 128, True, 0, bf16, 5),
+            ("hymba-1.5b global layer", 2, 4096, 25, 64, True, 0, bf16, 5),
+            ("hymba-1.5b windowed layer", 2, 4096, 25, 64, True, 1024, bf16,
+             5)):
+        flash_case(*args)
+    # B5 against the 4,352-slot cache of a 4,096-token prompt
+    # (cache_seq_len(4096)), at the first decode step's length
+    decode_case("llama3.2-3b decode, 4,352-slot cache (device int32)",
+                (8, 24, 8, 128, 4352), 4097, 0, bf16)
+    # B7 at the prefill's capacity: 2 x 4,096 tokens x top-2 x 1.25 / 16
+    for args in (
+            ("phi3.5-moe expert gate / up, capacity 1,280", 16, 1280, 4096,
+             6400, bf16, 5, "wgmma"),
+            ("phi3.5-moe expert down, capacity 1,280", 16, 1280, 6400, 4096,
+             bf16, 5, "wgmma")):
+        gmm_case(*args)
+    # B8 as hymba-1.5b's bf16 model hands it: float32 inputs
+    ssd_case("hymba-1.5b SSM heads fp32", 2, 4096, 50, 1, 64, 16, 256, "", "",
+             f32, 10)
     return ops, cases
+
+
+def kernel_signature(name: str, args, kwargs) -> tuple:
+    """What of one model-kernel call decides the code it runs and the
+    work it does: its tensors' shapes (B4's as rows x width), dtypes,
+    contiguity and 16-byte alignment, and its options (B6's causal and
+    window, B5's window, B8's chunk).  B5's length and B4's eps are
+    data."""
+    tensors = [a for a in args if hasattr(a, "shape") and a.dim() > 0]
+    shapes = [tuple(a.shape) for a in tensors]
+    if name == "rmsnorm":
+        shapes[0] = (tensors[0].numel() // shapes[0][-1], shapes[0][-1])
+    opts = {k: v for k, v in kwargs.items() if k != "eps"}
+    if name == "decode_attention":
+        opts["window"] = args[4] if len(args) > 4 else kwargs.get("window", 0)
+    return (name, tuple(shapes), tuple(str(a.dtype) for a in tensors),
+            tuple(a.is_contiguous() for a in tensors),
+            tuple(a.data_ptr() % 16 == 0 for a in tensors),
+            tuple(sorted(opts.items())))
 
 
 def ssd_float64(x, dt, a, b, c, chunk):
@@ -1687,6 +1798,9 @@ def phase_model_kernels(torch, device, card: str) -> list:
         for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
             entry[k] = head[k]
         entry["cases"] = rows
+        # the calls held against the plain version, for phase 10c
+        entry["held"] = {kernel_signature(name, c["args"], c["kwargs"])
+                         for c in cases if c["op"] == name}
         entries.append(entry)
     return entries
 
@@ -2463,6 +2577,336 @@ def phase_chaos(torch, device, fs, graph, eng, card) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the attention, MoE and hybrid models on the card
+# ---------------------------------------------------------------------------
+
+# the model kernels' counters and the prefix of each one's CUDA kernels in
+# a profiler trace
+KERNEL_PREFIX = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_",
+                 "flash_attention": "flash_", "grouped_matmul": "gmm_",
+                 "ssd_scan": "ssd_"}
+
+
+def arch_config(module: str, **changes):
+    """A full config of ``repro_torch.configs`` with ``changes`` (depth
+    and dtypes) applied."""
+    cfg = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+    return dataclasses.replace(cfg, **changes)
+
+
+def fp32(module: str, n_layers: int):
+    return arch_config(module, n_layers=n_layers, param_dtype="float32",
+                       activ_dtype="float32")
+
+
+def zero_launches(ops) -> None:
+    for name in KERNEL_PREFIX:
+        getattr(ops, name).launches = 0
+
+
+def read_launches(ops) -> dict:
+    return {name: getattr(ops, name).launches for name in KERNEL_PREFIX}
+
+
+class RouteRecorder:
+    """Inside a ``with`` block, records every MoE layer's expert choices
+    and queue positions (as host tensors) by wrapping the layer module's
+    ``moe_routing`` and ``_expert_positions``."""
+
+    def __init__(self, layers):
+        self.layers, self.experts, self.positions = layers, [], []
+
+    def __enter__(self):
+        L = self.layers
+        self._saved = (L.moe_routing, L._expert_positions)
+        routing, positions = self._saved
+
+        def rec_routing(*a, **k):
+            out = routing(*a, **k)
+            self.experts.append(out[1].cpu())
+            return out
+
+        def rec_positions(*a, **k):
+            out = positions(*a, **k)
+            self.positions.append(out.cpu())
+            return out
+
+        L.moe_routing, L._expert_positions = rec_routing, rec_positions
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_routing, self.layers._expert_positions = self._saved
+
+
+class CallRecorder:
+    """Inside a ``with`` block, records the ``kernel_signature`` of every
+    call the model makes to a kernel of ``kernels.ops`` by wrapping the
+    module's entry points; each wrapped wrapper still keeps its own
+    count."""
+
+    def __init__(self, ops):
+        self.ops, self.signatures = ops, set()
+
+    def __enter__(self):
+        self._saved = {name: getattr(self.ops, name)
+                       for name in KERNEL_PREFIX}
+        for name, fn in self._saved.items():
+            def rec(*a, _name=name, _fn=fn, **k):
+                self.signatures.add(kernel_signature(_name, a, k))
+                return _fn(*a, **k)
+            setattr(self.ops, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.ops, name, fn)
+
+
+def hold_card_cpu(torch, device, module: str, n_layers: int, B: int, S: int,
+                  seed: int, card: str) -> dict:
+    """Phase 10a for one config: the fp32 forward (hidden states and the
+    last position's logits) on the card against the port's CPU run on the
+    same weights (one seeded init on the card, copied to the host); for a
+    MoE config also every layer's expert ids and queue positions,
+    exactly."""
+    from repro_torch import models
+    from repro_torch.models import layers
+    cfg = fp32(module, n_layers)
+    params = models.init_params(cfg, seed, device=device)
+    toks = torch.from_numpy(host_tokens(cfg, B, S, seed))
+    with RouteRecorder(layers) as card_routes:
+        h, _ = models.forward(params, cfg, toks.to(device))
+        last = models.logits_fn(params, cfg, h[:, -1:])
+    t0 = time.perf_counter()
+    cpu_params = to_cpu(params)
+    del params
+    with RouteRecorder(layers) as cpu_routes:
+        h_cpu, _ = models.forward(cpu_params, cfg, toks)
+        last_cpu = models.logits_fn(cpu_params, cfg, h_cpu[:, -1:])
+    cpu_s = time.perf_counter() - t0
+    where = f"phase 10a {cfg.name} {n_layers} layers B {B} x S {S}"
+    errs = {}
+    for name, got, want in (("hidden", h, h_cpu), ("logits", last, last_cpu)):
+        got = got.cpu()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{where}: {name} {tuple(got.shape)} or non-finite")
+        d = (got - want).abs()
+        over = int((d > MODEL7_TOL * (1 + want.abs())).sum())
+        errs[name] = float(d.max())
+        check(over == 0, f"{where}: {name} differs from the CPU run beyond "
+              f"rtol=atol={MODEL7_TOL} in {over} entries (max abs "
+              f"{errs[name]:.3g})")
+    routed = len(card_routes.experts)
+    check(routed == (n_layers if cfg.is_moe else 0)
+          and len(cpu_routes.experts) == routed,
+          f"{where}: {routed} routed layers on the card, "
+          f"{len(cpu_routes.experts)} on the CPU")
+    for i in range(routed):
+        for what, a, b in (("expert ids", card_routes.experts[i],
+                            cpu_routes.experts[i]),
+                           ("positions", card_routes.positions[i],
+                            cpu_routes.positions[i])):
+            check(torch.equal(a, b), f"{where}: layer {i} {what} differ "
+                  f"card vs CPU in {int((a != b).sum())} of {a.numel()}")
+    log(f"{where} ok: fp32 forward card == CPU (max abs err hidden "
+        f"{errs['hidden']:.3g}, logits {errs['logits']:.3g}; limit "
+        f"rtol=atol={MODEL7_TOL})"
+        + (f"; expert ids and positions equal in {routed} layers"
+           if routed else "") + f"; CPU run {cpu_s:.2f} s [{card}]")
+    return {"config": cfg.name, "layers": n_layers, "batch": B, "seq": S,
+            "max_abs_err": errs, "routed_layers": routed}
+
+
+def decode_error(torch, models, params, cfg, toks, full_logits) -> float:
+    """Max |teacher-forced decode logits - forward logits| over every
+    step, from a zero float32 state."""
+    B, S = toks.shape
+    state = models.init_decode_state(cfg, B, S, torch.float32,
+                                     device=toks.device)
+    worst = torch.zeros((), device=toks.device)
+    for t in range(S):
+        lg, state = models.decode_step(params, cfg, state, toks[:, t])
+        worst = torch.maximum(worst, (lg - full_logits[:, t]).abs().max())
+    return float(worst)
+
+
+def hold_decode(torch, device, module: str, n_layers: int, B: int, S: int,
+                seed: int, card: str, kv_quant: bool,
+                sync_check: bool) -> dict:
+    """Phase 10b for one config: the fp32 forward's logits against S
+    teacher-forced decode steps on the card (B5 each layer a step),
+    within ``DECODE_TOL`` of max|logit|; with ``kv_quant`` the int8-cache
+    decode within ``KVQ_REL_TOL`` of it (the reference's own
+    ``test_kv_quant_decode_close_to_fp``).  ``sync_check``: one more
+    step with any host synchronise an error (the cache write and B5's
+    length stay on the device)."""
+    from repro_torch import models
+    cfg = fp32(module, n_layers)
+    params = models.init_params(cfg, seed, device=device)
+    toks = torch.from_numpy(host_tokens(cfg, B, S, seed)).to(device)
+    full = models.logits_fn(params, cfg, models.forward(params, cfg, toks)[0])
+    scale = float(full.abs().max())
+    dcfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+    t0 = time.perf_counter()
+    worst = decode_error(torch, models, params, dcfg, toks, full)
+    step_ms = 1e3 * (time.perf_counter() - t0) / S
+    tol = KVQ_REL_TOL if kv_quant else DECODE_TOL
+    where = (f"phase 10b {cfg.name}{' kv_quant' if kv_quant else ''} "
+             f"{n_layers} layers B {B} x S {S}")
+    check(np.isfinite(worst) and worst <= tol * scale,
+          f"{where}: teacher-forced decode differs from the forward by "
+          f"{worst:.3g}, over {tol} x max|logit| {scale:.3g}")
+    log(f"{where} ok: {S} teacher-forced decode steps == forward (max abs "
+        f"err {worst:.3g} = {worst / scale:.3g} of max|logit| {scale:.3g}; "
+        f"limit {tol}); {step_ms:.3f} ms a step [{card}]")
+    out = {"config": cfg.name, "layers": n_layers, "batch": B, "seq": S,
+           "kv_quant": kv_quant, "max_abs_err": worst, "max_abs_logit": scale}
+    if sync_check:
+        state = models.init_decode_state(cfg, B, S + 1, torch.float32,
+                                         device=device, length=S)
+        models.decode_step(params, cfg, state, toks[:, 0])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            models.decode_step(params, cfg, state, toks[:, 1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        out["sync_free_step"] = True
+        log(f"{where}: one decode step under set_sync_debug_mode('error') "
+            f"ok (no host synchronise) [{card}]")
+    return out
+
+
+def timed_run(torch, ops, label: str, fn, want: dict, reps: int,
+              card: str, held: set) -> dict:
+    """A counted, timed and profiled bf16 run of ``fn``: the counts
+    zeroed just before one call and read just after (held to ``want``),
+    every kernel call of that run found among ``held`` (the calls phase
+    6 held against the plain version: the same shapes, dtypes, layout
+    and options), the peak device memory of that call, CUDA-event ms
+    over ``reps`` calls, and one profiled call: its device busy time,
+    idle share and each model kernel's share of device time."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(ops)
+    torch.cuda.synchronize()
+    with CallRecorder(ops) as calls:
+        out = fn()
+    torch.cuda.synchronize()
+    launches = read_launches(ops)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == want, f"phase 10c {label}: launches {launches}, "
+          f"want {want}")
+    unheld = calls.signatures - held
+    check(not unheld, f"phase 10c {label}: kernel calls that phase 6 does "
+          f"not hold against the plain version: {sorted(unheld)}")
+    check(all(bool(torch.isfinite(t).all()) for t in out),
+          f"phase 10c {label}: non-finite outputs")
+    ms = device_ms(torch, fn, reps=reps, warmup=1)
+    stats = {}
+    kernels_us = profile_run(label, torch, fn, card, stats)
+    busy = sum(kernels_us.values())
+    share = {name: (sum(us for k, us in kernels_us.items() if prefix in k)
+                    / busy if busy > 0 else None)
+             for name, prefix in KERNEL_PREFIX.items()}
+    log(f"profile {label}: share of device time by model kernel "
+        f"{json.dumps(share)} [{card}]")
+    return {"ms": ms, "peak_bytes": peak, "launches": launches,
+            "kernel_share": share, "idle_share": stats.get("idle_share")}
+
+
+def phase_models(torch, device, card: str, held: set) -> dict:
+    """Phase 10: llama3.2-3b, gemma3-4b, hymba-1.5b and phi3.5-moe at full
+    width through ``repro_torch.models``: (a) fp32 forwards, depth cut,
+    card against the port's CPU run (expert ids and positions exactly);
+    (b) fp32 teacher-forced decode against the forward, llama3.2-3b also
+    with the int8 cache, and one step with no host synchronise; (c) bf16
+    from the port's seeded init, timed: the llama3.2-3b prefill of
+    B 2 x S 4,096 (all 28 layers) and its decode at B 8 against a
+    4,352-slot cache, the phi3.5-moe prefill (8 layers) and the
+    hymba-1.5b prefill (all 32 layers), each with the kernel counts
+    checked and every kernel call found among ``held``, the calls phase
+    6 held against the plain version."""
+    from repro_torch import models
+    from repro_torch.configs.base import cache_seq_len
+    from repro_torch.kernels import ops
+    out = {"card_vs_cpu": [], "decode_vs_forward": []}
+    seed = MODEL10_SEED
+    for module, n_layers, B, S in MODEL10_CARD_CPU:
+        seed += 1
+        out["card_vs_cpu"].append(hold_card_cpu(torch, device, module,
+                                                n_layers, B, S, seed, card))
+        torch.cuda.empty_cache()
+    for module, n_layers, B, S, kv_quant, sync_check in MODEL10_DECODE:
+        seed += 1
+        out["decode_vs_forward"].append(hold_decode(
+            torch, device, module, n_layers, B, S, seed, card, kv_quant,
+            sync_check))
+        torch.cuda.empty_cache()
+
+    B, S = PREFILL_SHAPE
+    none = dict.fromkeys(KERNEL_PREFIX, 0)
+    runs = {}
+    for label, module, n_layers, want in MODEL10_PREFILL:
+        seed += 1
+        cfg = arch_config(module, n_layers=n_layers)
+        params = models.init_params(cfg, seed, device=device)
+        toks = torch.from_numpy(host_tokens(cfg, B, S, seed)).to(device)
+        if cfg.is_moe:
+            cap = models.moe_capacity(cfg, B * S)
+            check(cap == 1280, f"phase 10c {label}: capacity {cap}")
+
+        def prefill():
+            h, _ = models.forward(params, cfg, toks)
+            return h, models.logits_fn(params, cfg, h[:, -1:])
+
+        row = timed_run(torch, ops, label, prefill, {**none, **want}, 3, card,
+                        held)
+        row.update(config=cfg.name, layers=n_layers, batch=B, seq=S,
+                   tokens_per_s=B * S / (row["ms"] / 1e3))
+        log(f"phase 10c {label}: {cfg.name} bf16 {n_layers} layers, prefill "
+            f"B {B} x S {S} (forward + last-position logits) {row['ms']:.3f}"
+            f" ms = {row['tokens_per_s']:.1f} tokens/s; peak device memory "
+            f"{row['peak_bytes'] / 2**30:.3f} GiB; idle share "
+            f"{row['idle_share']}; launches {row['launches']} [{card}]")
+        runs[label] = row
+        if label == "llama3.2-3b prefill":
+            # decode at B 8 against the cache of a 4,096-token prompt
+            Bd = DECODE_BATCH
+            state = models.init_decode_state(cfg, Bd, cache_seq_len(S),
+                                             device=device, length=S)
+            tok = torch.from_numpy(host_tokens(cfg, Bd, 1, seed)[:, 0]).to(
+                device)
+            box = [state]
+
+            def step():
+                lg, box[0] = models.decode_step(params, cfg, box[0], tok)
+                return (lg,)
+
+            step()
+            drow = timed_run(torch, ops, "llama3.2-3b decode", step,
+                             {**none, "decode_attention": cfg.n_layers,
+                              "rmsnorm": 2 * cfg.n_layers + 1}, 8, card,
+                             held)
+            drow.update(config=cfg.name, batch=Bd,
+                        cache_slots=cache_seq_len(S), length=S,
+                        tokens_per_s=Bd / (drow["ms"] / 1e3))
+            log(f"phase 10c llama3.2-3b decode: B {Bd} against "
+                f"{cache_seq_len(S)} cache slots from length {S}: "
+                f"{drow['ms']:.3f} ms a step ({drow['tokens_per_s']:.1f} "
+                f"tokens/s); peak device memory "
+                f"{drow['peak_bytes'] / 2**30:.3f} GiB; idle share "
+                f"{drow['idle_share']} [{card}]")
+            runs["llama3.2-3b decode"] = drow
+            del state, box
+        del params
+        torch.cuda.empty_cache()
+    out["timed"] = runs
+    return out
+
+
 def main_grid(n: int) -> dict:
     from repro_torch.core.scenarios import scenario_grid
     from repro_torch.core.sweep_engine import tile_grid
@@ -2724,6 +3168,28 @@ def main() -> int:
         "chaos campaign (phase 9a)": ln["b2 campaign"],
         "sampled faults (phase 9b)": ln["b2 sampled faults"]})
     k_prop["launches"] = ln["b2 campaign"]
+
+    # phase 10: the attention, MoE and hybrid models, B4-B8 counted
+    t0 = time.perf_counter()
+    lm = phase_models(torch, device, card,
+                      set().union(*(e["held"] for e in k_model)))
+    timed = lm["timed"]
+    log(f"phase 10 ok: {time.perf_counter() - t0:.2f} s, "
+        + json.dumps({k: {m: r[m] for m in ("ms", "tokens_per_s",
+                                             "peak_bytes", "idle_share",
+                                             "launches")}
+                      for k, r in timed.items()}) + f" [{card}]")
+    for name, newest in (("rmsnorm", "llama3.2-3b prefill"),
+                         ("decode_attention", "llama3.2-3b decode"),
+                         ("flash_attention", "llama3.2-3b prefill"),
+                         ("grouped_matmul", "phi3.5-moe prefill"),
+                         ("ssd_scan", "hymba-1.5b prefill")):
+        paths = by_name[name].setdefault(
+            "launches_by_path", {"kernels.ops (phase 6)":
+                                 by_name[name]["launches"]})
+        paths.update({f"{label} (phase 10c)": row["launches"][name]
+                      for label, row in timed.items()})
+        by_name[name]["launches"] = timed[newest]["launches"][name]
 
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",

@@ -4,5 +4,6 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeSpec,
     all_archs,
     get_arch,
+    input_specs,
     register,
 )

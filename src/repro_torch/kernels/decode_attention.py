@@ -135,15 +135,11 @@ def _runtime_scalar(name: str, val, device: torch.device):
     return None, val, None
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, length,
-                     window=0) -> torch.Tensor:
-    """q (B, H, d); caches (B, K, KV, d), float32 or bfloat16, one dtype.
-    Returns (B, H, d) in q's dtype.  CUDA tensors launch the kernel
-    (counted in ``decode_attention.launches``); CPU tensors take the plain
-    version."""
-    if backend.kernel_route("decode_attention", q, k_cache, v_cache) == "cpu":
-        return ref_decode_attention(q, k_cache, v_cache, length, window)
+def check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor) -> int:
+    """The kernel's checks on q and the caches; returns the dtype code.
+    Reads only dtype, shape, strides and address, so it takes ``meta``
+    tensors too (the CPU tests run it at the models' shapes)."""
     dt = backend.kernel_dtype("decode_attention", q, k_cache, v_cache)
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: q (B, H, d) and caches "
@@ -162,6 +158,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             and backend.rows_aligned(v_cache)):
         raise ValueError("decode_attention: q contiguous, and every row of "
                          "q and the caches unit-strided and 16-byte aligned")
+    return dt
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length,
+                     window=0) -> torch.Tensor:
+    """q (B, H, d); caches (B, K, KV, d), float32 or bfloat16, one dtype.
+    Returns (B, H, d) in q's dtype.  CUDA tensors launch the kernel
+    (counted in ``decode_attention.launches``); CPU tensors take the plain
+    version."""
+    if backend.kernel_route("decode_attention", q, k_cache, v_cache) == "cpu":
+        return ref_decode_attention(q, k_cache, v_cache, length, window)
+    dt = check_inputs(q, k_cache, v_cache)
+    B, H, d = q.shape
+    _, K, KV, _ = k_cache.shape
     # the third values hold any int32 copy made on the card until the
     # launch that reads it has been queued
     len_dev, len_host, _len = _runtime_scalar("length", length, q.device)

@@ -35,14 +35,11 @@ def _lib():
     return fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q, k, v (B, S, H, d), float32 or bfloat16, one dtype; ``window`` 0
-    = global, > 0 = keys with ``q_pos - k_pos < window``.  Returns
-    (B, S, H, d) in q's dtype.  CUDA tensors launch the kernel (counted in
-    ``flash_attention.launches``); CPU tensors take the plain version."""
-    if backend.kernel_route("flash_attention", q, k, v) == "cpu":
-        return ref_flash_attention(q, k, v, causal=causal, window=window)
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int = 0) -> int:
+    """The kernel's checks on q, k, v and ``window``; returns the dtype
+    code.  Reads only dtype, shape, strides and address, so it takes
+    ``meta`` tensors too (the CPU tests run it at the models' shapes)."""
     dt = backend.kernel_dtype("flash_attention", q, k, v)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: q, k, v (B, S, H, d) of one "
@@ -55,10 +52,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not all(backend.rows_aligned(t) for t in (q, k, v)):
         raise ValueError("flash_attention: every row of q, k, v must be "
                          "unit-strided and 16-byte aligned")
-    window = int(window)
     if not 0 <= window < 2 ** 31 or max(B, S, H) >= 2 ** 31:
         raise ValueError(f"flash_attention: window={window} or shape "
                          f"{tuple(q.shape)} out of range")
+    return dt
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q, k, v (B, S, H, d), float32 or bfloat16, one dtype; ``window`` 0
+    = global, > 0 = keys with ``q_pos - k_pos < window``.  Returns
+    (B, S, H, d) in q's dtype.  CUDA tensors launch the kernel (counted in
+    ``flash_attention.launches``); CPU tensors take the plain version."""
+    if backend.kernel_route("flash_attention", q, k, v) == "cpu":
+        return ref_flash_attention(q, k, v, causal=causal, window=window)
+    window = int(window)
+    dt = check_inputs(q, k, v, window)
+    B, S, H, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out

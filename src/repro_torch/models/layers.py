@@ -1,21 +1,27 @@
-"""Core neural layers of the port: what the SSM (Mamba-2) family needs.
+"""Core neural layers of the port.
 
-The port of ``repro/models/layers.py``'s initializers, RMSNorm and the
-Mamba-2 (SSD) block.  Parameters are plain dicts of tensors, as in the
-reference; a stack of layers keeps its parameters along a leading layer
-axis.  Initializers draw from an explicit ``torch.Generator`` on the
-device the parameters live on; they follow the reference's distributions
-(held to them statistically by the tests), not its bits.
+The port of ``repro/models/layers.py``: the initializers, RMSNorm, rotary
+embeddings, GQA attention (qk-norm, per-layer window and theta, a bf16 /
+float32 or int8 KV cache), the SwiGLU MLP, the top-k capacity-dropped
+MoE and the Mamba-2 (SSD) block.  Parameters are plain dicts of tensors,
+as in the reference; a stack of layers keeps its parameters along a
+leading layer axis.  Initializers draw from an explicit
+``torch.Generator`` on the device the parameters live on; they follow
+the reference's distributions (held to them statistically by the
+tests), not its bits.
 
 Compute-dtype policy, as in the reference: matmuls run in the activation
-dtype; the conv, the scan, softplus and the norms in float32.  Two
-kernels carry the block: ``rmsnorm`` launches B4 (``kernels.ops.rmsnorm``)
-and ``ssm_apply`` launches B8 (``kernels.ops.ssd_scan``) where the
-reference runs its plain ``ssd_chunked``, which stays here as the
-model's plain algorithm and, in float64, the yardstick of B8's
-accuracy.  The reference's sharding hint is gone: with no mesh it
-returns its input.  Attention, MLP and MoE layers are not ported
-yet.
+dtype; softmax, the router, the conv, the scan, softplus and the norms in
+float32.  The kernels carry the layers: ``rmsnorm`` launches B4
+(``kernels.ops.rmsnorm``), ``attention`` B6 (``ops.flash_attention``)
+for a prefill and B5 (``ops.decode_attention``) against a cache, the
+MoE's three expert products B7 (``ops.grouped_matmul``) and ``ssm_apply``
+B8 (``ops.ssd_scan``).  The reference computes its own attention and
+``ssd_chunked`` instead; ``ssd_chunked`` stays here as the SSD block's
+plain algorithm, and ``_blocked_local_attention`` as a port of the
+reference's blocked sliding-window attention, which B6 replaces.  The
+reference's sharding hints are gone: with no mesh they return their
+input, and ``seq_parallel`` moved only hints.
 """
 
 from __future__ import annotations
@@ -38,9 +44,26 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
+class Abstract:
+    """Stands in for the generator where ``models.init_abstract`` builds
+    the parameter tree on the ``meta`` device: each draw keeps its shape
+    and dtype and draws nothing."""
+    device = torch.device("meta")
+
+
+def _param_device(device) -> torch.device:
+    """The device parameters or caches are made on: ``meta`` as given
+    (shapes only), any other through ``resolve_device``."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size=None):
     """Truncated-normal fan-in init (maxtext-style): N(0, 1) cut at +-2,
     times 1 / sqrt(fan_in), drawn in float32 and cast."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     std = 1.0 / math.sqrt(max(1, fan_in))
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
@@ -49,6 +72,8 @@ def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size=None):
 
 
 def _embed_init(gen: torch.Generator, shape, dtype):
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * 0.02).to(dtype)
 
@@ -62,13 +87,347 @@ def init_rmsnorm(dim: int, dtype=torch.float32, device=None) -> Params:
     """Unit scale on ``device`` (default: the CUDA card, as every entry
     point of the port)."""
     return {"scale": torch.ones((dim,), dtype=dtype,
-                                device=resolve_device(device))}
+                                device=_param_device(device))}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale`` in float32, stored in x's
     dtype: kernel B4 on the card."""
     return ops.rmsnorm(x.contiguous(), params["scale"], eps)
+
+
+def rmsnorm_noscale(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Scale-free RMS norm (used for qk-norm when per-head scale is folded)."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (exps / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, d_head); positions: (..., seq) integers.  The
+    head dimension rotates as two halves (not interleaved pairs), in
+    float32."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)   # (d_head//2,)
+    angles = positions[..., :, None].float() * freqs         # (..., seq, d/2)
+    cos = torch.cos(angles)[..., :, None, :]                 # (..., seq, 1, d/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional sliding window, optional qk-norm)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv_heads: int, d_head: int, qk_norm: bool,
+                   dtype=torch.float32) -> Params:
+    p = {
+        "wq": _dense_init(gen, (d_model, n_heads * d_head), dtype),
+        "wk": _dense_init(gen, (d_model, n_kv_heads * d_head), dtype),
+        "wv": _dense_init(gen, (d_model, n_kv_heads * d_head), dtype),
+        "wo": _dense_init(gen, (n_heads * d_head, d_model), dtype,
+                          in_axis_size=n_heads * d_head),
+    }
+    if qk_norm:
+        p["q_norm"] = init_rmsnorm(d_head, dtype, gen.device)
+        p["k_norm"] = init_rmsnorm(d_head, dtype, gen.device)
+    return p
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization of K/V.
+    x: (B, S, KV, dh) -> (int8 values, fp32 scales (B, S, KV))."""
+    x32 = x.float()
+    scale = torch.clamp_min(x32.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+               window: int) -> torch.Tensor:
+    """Boolean (q, k) mask. window: an int; <= 0 means global causal."""
+    causal = k_pos[None, :] <= q_pos[:, None]
+    if window <= 0:
+        return causal
+    return causal & ((q_pos[:, None] - k_pos[None, :]) < window)
+
+
+def _blocked_local_attention(q, k, v, window: int, block: int, scale: float):
+    """Sliding-window attention computed over (block, 2*block) tiles: each
+    query block attends to itself + the previous block, masked to the exact
+    window.  Requires S % block == 0 and window <= block.  q/k/v:
+    (B, S, H, d) with KV pre-repeated."""
+    B, S, H, d = q.shape
+    nb = S // block
+    qb = q.reshape(B, nb, block, H, d)
+    kb = k.reshape(B, nb, block, H, d)
+    vb = v.reshape(B, nb, block, H, d)
+
+    def prev(t):   # block n-1 beside block n, zeros before the first
+        return torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], dim=1)
+
+    k2 = torch.cat([prev(kb), kb], dim=2)                  # (B,nb,2b,H,d)
+    v2 = torch.cat([prev(vb), vb], dim=2)
+    scores = torch.einsum("bnqhd,bnkhd->bnhqk", qb.float(),
+                          k2.float()) * scale
+    q_pos = torch.arange(block, device=q.device)[:, None]  # within-block
+    k_pos = torch.arange(2 * block, device=q.device)[None, :] - block
+    dist = q_pos - k_pos
+    mask = (dist >= 0) & (dist < max(window, 1))
+    # first block has no predecessor: mask the padded half
+    first = (torch.arange(nb, device=q.device) == 0)[None, :, None, None, None]
+    pad_mask = (k_pos >= 0)[None, None, None, :, :] | ~first
+    allowed = mask[None, None, None] & pad_mask
+    probs = torch.softmax(torch.where(allowed, scores, -1e30),
+                          dim=-1).to(q.dtype)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", probs, v2)
+    return out.reshape(B, S, H, d)
+
+
+def _write_cache(cache: torch.Tensor, start: torch.Tensor,
+                 new: torch.Tensor) -> None:
+    """``cache[:, start:start + S] = new`` in place, with
+    ``lax.dynamic_update_slice``'s clamp: a start past ``K - S`` writes the
+    last S slots.  ``start`` stays on the device (no host read)."""
+    S, K = new.shape[1], cache.shape[1]
+    first = torch.clamp(start.long(), 0, K - S)
+    idx = first + torch.arange(S, device=cache.device)
+    cache.index_copy_(1, idx, new.to(cache.dtype))
+
+
+def attention(params: Params, x: torch.Tensor, *, n_heads: int,
+              n_kv_heads: int, d_head: int, theta: float, window: int = 0,
+              qk_norm: bool = False, eps: float = 1e-6,
+              kv_cache: Optional[Tuple[torch.Tensor, ...]] = None,
+              cache_len: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """Multi-head GQA attention.
+
+    x: (B, S, D).  Without a cache (prefill) the queries sit at positions
+    0..S-1 and attention runs on B6 (``ops.flash_attention``, K/V repeated
+    to the query heads in ``jnp.repeat``'s order, ``window`` passed
+    through).  With ``kv_cache`` (decode): (k_cache, v_cache) of shape
+    (B, max_seq, n_kv, d_head), or int8 values with their float32
+    (B, max_seq, n_kv) scales (k_cache, v_cache, k_scale, v_scale).  The
+    new K/V are written into those tensors IN PLACE at ``cache_len`` (a
+    0-d integer tensor, read on the device), and each new query s runs on
+    B5 (``ops.decode_attention``) with length ``cache_len + s + 1`` and
+    the layer's window: the reference's mask with ``valid``.  A cache of
+    another dtype than x (int8 dequantised, or bf16 under a float32
+    model) is cast to x's dtype first, as the reference casts it.  B6
+    applies the window itself, so the reference's ``local_block`` (its
+    blocked O(S*W) route, ``_blocked_local_attention``, the same
+    function) has no counterpart here.  Returns (out, the caches given,
+    now updated)."""
+    B, S, D = x.shape
+    cdt = x.dtype
+    q = (x @ params["wq"].to(cdt)).reshape(B, S, n_heads, d_head)
+    k = (x @ params["wk"].to(cdt)).reshape(B, S, n_kv_heads, d_head)
+    v = (x @ params["wv"].to(cdt)).reshape(B, S, n_kv_heads, d_head)
+    if qk_norm:
+        q = rmsnorm(params["q_norm"], q, eps)
+        k = rmsnorm(params["k_norm"], k, eps)
+
+    offsets = torch.arange(S, dtype=torch.int32, device=x.device)
+    positions = (offsets if kv_cache is None else cache_len + offsets)[None, :]
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+
+    if kv_cache is None:
+        group = n_heads // n_kv_heads
+        kr = torch.repeat_interleave(k, group, dim=2) if group > 1 else k
+        vr = torch.repeat_interleave(v, group, dim=2) if group > 1 else v
+        out = ops.flash_attention(q, kr, vr, causal=True, window=window)
+    else:
+        # the reference's dist.splitkv branch (a sequence-sharded cache
+        # under shard_map) needs a mesh: ROADMAP Queue A item 3
+        start = cache_len.reshape(())
+        if len(kv_cache) == 4:
+            k_cache, v_cache, k_scale, v_scale = kv_cache
+            for cache, scales, new in ((k_cache, k_scale, k),
+                                       (v_cache, v_scale, v)):
+                values, sc = quantize_kv(new)
+                _write_cache(cache, start, values)
+                _write_cache(scales, start, sc)
+            k_all = (k_cache.float() * k_scale[..., None]).to(cdt)
+            v_all = (v_cache.float() * v_scale[..., None]).to(cdt)
+        else:
+            k_cache, v_cache = kv_cache
+            _write_cache(k_cache, start, k)
+            _write_cache(v_cache, start, v)
+            k_all, v_all = k_cache.to(cdt), v_cache.to(cdt)
+        out = torch.stack([ops.decode_attention(
+            q[:, s].contiguous(), k_all, v_all, start + (s + 1), window)
+            for s in range(S)], dim=1)
+    out = out.reshape(B, S, n_heads * d_head)
+    return out @ params["wo"].to(cdt), kv_cache
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             dtype=torch.float32) -> Params:
+    return {
+        "w_gate": _dense_init(gen, (d_model, d_ff), dtype),
+        "w_up": _dense_init(gen, (d_model, d_ff), dtype),
+        "w_down": _dense_init(gen, (d_ff, d_model), dtype, in_axis_size=d_ff),
+    }
+
+
+def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU; the products are ``torch.matmul`` in x's dtype, as the
+    reference computes them outside any Pallas kernel."""
+    cdt = x.dtype
+    g = x @ params["w_gate"].to(cdt)
+    u = x @ params["w_up"].to(cdt)
+    return (F.silu(g) * u) @ params["w_down"].to(cdt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k, capacity-dropped, sort-free scatter dispatch)
+# ---------------------------------------------------------------------------
+
+
+def init_moe(gen: torch.Generator, d_model: int, n_experts: int, d_ff: int,
+             n_shared: int = 0, dtype=torch.float32) -> Params:
+    # the fan-in as the reference takes it: the leading (expert) axis of
+    # the gate and up slabs
+    p = {
+        "router": _dense_init(gen, (d_model, n_experts), torch.float32),
+        "w_gate": _dense_init(gen, (n_experts, d_model, d_ff), dtype),
+        "w_up": _dense_init(gen, (n_experts, d_model, d_ff), dtype),
+        "w_down": _dense_init(gen, (n_experts, d_ff, d_model), dtype,
+                              in_axis_size=d_ff),
+    }
+    if n_shared:
+        p["shared"] = init_mlp(gen, d_model, n_shared * d_ff, dtype)
+    return p
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``F.one_hot`` without its host read of the largest index."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def moe_routing(router_w: torch.Tensor, x: torch.Tensor, top_k: int):
+    """Router in fp32. x: (T, D). Returns (weights (T,k), experts (T,k),
+    aux_loss).  Ties go to the lower expert index, as ``lax.top_k``
+    breaks them: a stable descending sort (``torch.topk`` promises no
+    order among equal values)."""
+    logits = x.float() @ router_w.float()                       # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :top_k], top_e[:, :top_k]
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    # Switch-style load-balancing aux loss
+    n_experts = router_w.shape[1]
+    me = probs.mean(dim=0)                                      # (E,)
+    ce = _one_hot(top_e[:, 0], n_experts, torch.float32).mean(dim=0)
+    aux = n_experts * torch.sum(me * ce)
+    return top_w, top_e, aux
+
+
+def _expert_positions(top_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Position of each (token, slot) within its expert queue, counted jointly
+    across slots in (slot-major, token) order.  top_e: (T, k) -> pos (T, k)."""
+    T, k = top_e.shape
+    flat = top_e.T.reshape(-1)             # slot-major: all slot-0 tokens first
+    onehot = _one_hot(flat, n_experts, torch.int32)             # (T*k, E)
+    pos_flat = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
+    pos = pos_flat.gather(1, flat[:, None])[:, 0]
+    return pos.reshape(k, T).T
+
+
+def _expert_positions_big(top_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Sort-based variant that avoids the (T*k, E) one-hot (for big E):
+    a stable argsort, so each queue keeps (slot-major, token) order."""
+    T, k = top_e.shape
+    flat = top_e.T.reshape(-1)
+    tk = flat.shape[0]
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros((n_experts,), dtype=torch.int32, device=flat.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    starts = torch.cumsum(counts, dim=0, dtype=torch.int32) - counts  # (E,)
+    pos_sorted = (torch.arange(tk, dtype=torch.int32, device=flat.device)
+                  - starts[flat[order]])
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    return pos.reshape(k, T).T
+
+
+def moe_apply_local(params: Params, x: torch.Tensor, *, top_k: int,
+                    capacity: int, n_experts: int, expert_start: int = 0,
+                    n_local_experts: Optional[int] = None,
+                    big_e_threshold: int = 64
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply a (possibly expert-sharded) MoE to local tokens.
+
+    x: (T, D) local tokens.  params hold only the local expert slab
+    [expert_start, expert_start+n_local).  Returns (partial y (T, D), aux
+    loss); with experts sharded the caller sums y over the shards.  The
+    three expert products run on B7 (``ops.grouped_matmul``: a float32
+    accumulator stored in x's dtype, as the reference's einsums with
+    ``preferred_element_type=float32`` and a cast)."""
+    T, D = x.shape
+    cdt = x.dtype
+    n_local = n_local_experts if n_local_experts is not None else n_experts
+    top_w, top_e, aux = moe_routing(params["router"], x, top_k)
+
+    if n_experts >= big_e_threshold:
+        pos = _expert_positions_big(top_e, n_experts)
+    else:
+        pos = _expert_positions(top_e, n_experts)
+
+    # each slot's row in the per-expert queues; a dropped slot (another
+    # shard's expert, or past capacity) goes to the trash row
+    trash = n_local * capacity
+    slots = []
+    for s in range(top_k):
+        e = top_e[:, s] - expert_start
+        ok = (e >= 0) & (e < n_local) & (pos[:, s] < capacity)
+        dst = torch.where(ok, e * capacity
+                          + torch.clamp(pos[:, s], max=capacity - 1), trash)
+        slots.append((ok, dst))
+
+    # Scatter tokens into per-expert queues: xe (n_local * capacity, D)
+    xe = torch.zeros((trash + 1, D), dtype=cdt, device=x.device)
+    for ok, dst in slots:
+        xe.index_add_(0, dst, torch.where(ok[:, None], x, 0))
+    xe = xe[:trash].reshape(n_local, capacity, D)
+
+    # Expert GEMMs (grouped): (E_l, C, D) x (E_l, D, F)
+    g = ops.grouped_matmul(xe, params["w_gate"].to(cdt))
+    u = ops.grouped_matmul(xe, params["w_up"].to(cdt))
+    ye = ops.grouped_matmul(F.silu(g) * u, params["w_down"].to(cdt))
+    ye = torch.cat([ye.reshape(trash, D),
+                    torch.zeros((1, D), dtype=cdt, device=x.device)])
+
+    # Combine: gather each slot's expert output back to its token, slot
+    # by slot
+    y = torch.zeros((T, D), dtype=cdt, device=x.device)
+    for s, (ok, dst) in enumerate(slots):
+        w = torch.where(ok, top_w[:, s], 0.0).to(cdt)
+        y = y + ye[dst] * w[:, None]
+
+    if "shared" in params:
+        y = y + mlp(params["shared"], x)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +470,8 @@ def init_ssm(gen: torch.Generator, dims: SSMDims, dtype=torch.float32) -> Params
     conv_w = _dense_init(gen, (dims.d_conv, conv_dim), dtype,
                          in_axis_size=dims.d_conv)
     u = torch.empty((dims.n_heads,), dtype=torch.float32, device=dev)
-    u.uniform_(math.log(1e-3), math.log(1e-1), generator=gen)
+    if dev.type != "meta":
+        u.uniform_(math.log(1e-3), math.log(1e-1), generator=gen)
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,

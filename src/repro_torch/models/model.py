@@ -1,13 +1,14 @@
-"""Decoder-LM model of the port: the pure-SSM (Mamba-2) family.
+"""Unified decoder-LM model of the port covering every assigned family.
 
-The port of ``repro/models/model.py``.  ``LMConfig`` is the reference's
-whole; the functions take its pure-SSM branch, and a config with
-attention or a feed-forward block raises ``NotImplementedError`` (those
-layers come with ROADMAP Queue A item 1).  The layer stack is a Python
-loop over the stacked leading axis of the params (the reference's
+The port of ``repro/models/model.py``: one ``LMConfig`` describes dense /
+MoE / SSM (Mamba-2) / hybrid (Hymba) decoder stacks; modality frontends
+(audio frames, vision patches) are stubs, ``embed_inputs=False`` configs
+taking precomputed ``(B, S, d_model)`` embeddings.  The layer stack is a
+Python loop over the stacked leading axis of the params (the reference's
 ``lax.scan``), with no remat: it matters only for training.  Entry points
 that make tensors (``init_params``, ``init_decode_state``) take
-``device=`` and run on the CUDA card unless the caller names the CPU.
+``device=`` and run on the CUDA card unless the caller names the CPU;
+``init_abstract`` builds the tree on the ``meta`` device.
 """
 
 from __future__ import annotations
@@ -24,6 +25,20 @@ from repro_torch.models import layers as L
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEParallel:
+    """How to run the MoE layer.
+
+    mode="auto": ``moe_apply_local`` over every expert.  mode="shard_map":
+    the reference's expert-parallel dispatch over ``mesh``; on one device
+    (``mesh=None``) it is ``moe_apply_local`` with ``expert_start=0``, and
+    a mesh of devices raises (ROADMAP Queue A item 3, which also brings
+    the reference's ``model_axis`` and ``fsdp_axes``).
+    """
+    mode: str = "auto"
+    mesh: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,15 +175,6 @@ class LMConfig:
         return self.param_count() - inactive
 
 
-def _require_pure_ssm(cfg: LMConfig) -> None:
-    if cfg.has_attn or cfg.has_ffn or not cfg.has_ssm:
-        raise NotImplementedError(
-            f"repro_torch.models runs the pure-SSM family only; {cfg.name} "
-            f"(block={cfg.block!r}, d_ff={cfg.d_ff}, n_experts="
-            f"{cfg.n_experts}) needs the attention, MLP or MoE layers of "
-            f"ROADMAP Queue A item 1")
-
-
 # ---------------------------------------------------------------------------
 # Initialization
 # ---------------------------------------------------------------------------
@@ -191,12 +197,29 @@ def _generator(generator: Union[torch.Generator, int, None],
     return gen
 
 
+def _init_layer(gen, cfg: LMConfig) -> Params:
+    dt, dev = cfg.pdtype, gen.device
+    p: Params = {"ln1": L.init_rmsnorm(cfg.d_model, dt, dev)}
+    if cfg.has_attn:
+        p["attn"] = L.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                     cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
+                                     dt)
+    if cfg.has_ssm:
+        p["ssm"] = L.init_ssm(gen, cfg.ssm_dims, dt)
+        if cfg.block == "hybrid":
+            p["mix"] = torch.full((2,), 0.5, dtype=torch.float32, device=dev)
+    if cfg.has_ffn:
+        p["ln2"] = L.init_rmsnorm(cfg.d_model, dt, dev)
+        if cfg.is_moe:
+            p["moe"] = L.init_moe(gen, cfg.d_model, cfg.n_experts, cfg.d_ff,
+                                  cfg.n_shared_experts, dt)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
+    return p
+
+
 def init_layer(generator, cfg: LMConfig, device=None) -> Params:
-    _require_pure_ssm(cfg)
-    gen = _generator(generator, device)
-    dt = cfg.pdtype
-    return {"ln1": L.init_rmsnorm(cfg.d_model, dt, gen.device),
-            "ssm": L.init_ssm(gen, cfg.ssm_dims, dt)}
+    return _init_layer(_generator(generator, device), cfg)
 
 
 def _stack(trees):
@@ -205,22 +228,30 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def init_params(cfg: LMConfig, generator=None, device=None) -> Params:
-    """Parameters with the reference's tree, shapes and dtypes, the layers
-    stacked on a leading axis.  ``generator``: a ``torch.Generator`` on
-    ``device`` or an int seed (default 0); ``device`` defaults to CUDA."""
-    _require_pure_ssm(cfg)
-    gen = _generator(generator, device)
+def _init_params(cfg: LMConfig, gen) -> Params:
     p: Params = {}
     if cfg.embed_inputs:
         p["embed"] = L._embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                    cfg.pdtype)
-    p["layers"] = _stack([init_layer(gen, cfg) for _ in range(cfg.n_layers)])
+    p["layers"] = _stack([_init_layer(gen, cfg) for _ in range(cfg.n_layers)])
     p["final_norm"] = L.init_rmsnorm(cfg.d_model, cfg.pdtype, gen.device)
     if not cfg.tie_embeddings:
         p["lm_head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                      cfg.pdtype)
     return p
+
+
+def init_params(cfg: LMConfig, generator=None, device=None) -> Params:
+    """Parameters with the reference's tree, shapes and dtypes, the layers
+    stacked on a leading axis.  ``generator``: a ``torch.Generator`` on
+    ``device`` or an int seed (default 0); ``device`` defaults to CUDA."""
+    return _init_params(cfg, _generator(generator, device))
+
+
+def init_abstract(cfg: LMConfig) -> Params:
+    """Shape/dtype skeleton of the params on the ``meta`` device (no
+    allocation, no draws): the reference's ``init_abstract``."""
+    return _init_params(cfg, L.Abstract())
 
 
 def _layer(params: Params, i: int) -> Params:
@@ -234,6 +265,64 @@ def _layer(params: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _attend(lp: Params, hn: torch.Tensor, cfg: LMConfig, window: int,
+            theta: float, **cache):
+    return L.attention(lp["attn"], hn, n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+                       theta=theta, window=window, qk_norm=cfg.qk_norm,
+                       eps=cfg.norm_eps, **cache)[0]
+
+
+def _ffn(lp: Params, h: torch.Tensor, cfg: LMConfig,
+         moe_parallel: Optional[MoEParallel],
+         capacity: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """h plus the layer's feed-forward block, and the MoE aux loss (None
+    without experts)."""
+    hn = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    if not cfg.is_moe:
+        return h + L.mlp(lp["mlp"], hn), None
+    if moe_parallel is not None:
+        if moe_parallel.mode not in ("auto", "shard_map"):
+            raise ValueError(f"MoEParallel.mode {moe_parallel.mode!r}")
+        if moe_parallel.mode == "shard_map" and moe_parallel.mesh is not None:
+            raise NotImplementedError(
+                "expert-parallel MoE over a mesh of devices comes with "
+                "ROADMAP Queue A item 3; on one device pass mesh=None")
+    B, S, D = hn.shape
+    y2, aux = L.moe_apply_local(lp["moe"], hn.reshape(B * S, D),
+                                top_k=cfg.moe_top_k, capacity=capacity,
+                                n_experts=cfg.n_experts)
+    return h + y2.reshape(B, S, D), aux
+
+
+def _layer_forward(lp: Params, h: torch.Tensor, cfg: LMConfig, window: int,
+                   theta: float, moe_parallel: Optional[MoEParallel],
+                   capacity: int):
+    hn = L.rmsnorm(lp["ln1"], h, cfg.norm_eps)
+    if cfg.has_attn and cfg.has_ssm:       # hybrid: parallel attn + ssm heads
+        ao = _attend(lp, hn, cfg, window, theta)
+        so = L.ssm_apply(lp["ssm"], cfg.ssm_dims, hn)
+        mix = lp["mix"].to(h.dtype)
+        h = h + mix[0] * ao + mix[1] * so
+    elif cfg.has_attn:
+        h = h + _attend(lp, hn, cfg, window, theta)
+    else:                                  # pure SSM
+        h = h + L.ssm_apply(lp["ssm"], cfg.ssm_dims, hn)
+    aux = None
+    if cfg.has_ffn:
+        h, aux = _ffn(lp, h, cfg, moe_parallel, capacity)
+    return h, aux
+
+
+def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
+    """Per-expert token capacity for a global token count (static)."""
+    if not cfg.is_moe:
+        return 0
+    cap = int(math.ceil(n_tokens * cfg.moe_top_k * cfg.capacity_factor
+                        / cfg.n_experts))
+    return max(8, ((cap + 7) // 8) * 8)
+
+
 def _embed(params: Params, cfg: LMConfig, inputs: torch.Tensor) -> torch.Tensor:
     adt = cfg.adtype
     if cfg.embed_inputs:
@@ -241,29 +330,34 @@ def _embed(params: Params, cfg: LMConfig, inputs: torch.Tensor) -> torch.Tensor:
     else:
         h = inputs.to(adt)
     if cfg.embed_scale:
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=adt,
-                             device=h.device)
+        # sqrt(d_model) rounded to the activation dtype, as a host scalar
+        # (a tensor made on the card would copy from the host and wait)
+        h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=adt))
     return h
 
 
-def forward(params: Params, cfg: LMConfig,
-            inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, cfg: LMConfig, inputs: torch.Tensor,
+            moe_parallel: Optional[MoEParallel] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> final hidden states (B, S, D), aux loss
-    (0 for the pure-SSM family).
+    (the MoE load-balancing loss summed over layers over ``n_layers``).
 
     ``inputs``: (B, S) integer token ids when cfg.embed_inputs else
     (B, S, d_model) precomputed embeddings (frontend stub).  The tensors
     run where the params lie.
     """
-    _require_pure_ssm(cfg)
     h = _embed(params, cfg, inputs)
-    dims = cfg.ssm_dims
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        hn = L.rmsnorm(lp["ln1"], h, cfg.norm_eps)
-        h = h + L.ssm_apply(lp["ssm"], dims, hn)
-    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    capacity = moe_capacity(cfg, h.shape[0] * h.shape[1])
+    windows = cfg.layer_windows().tolist()
+    thetas = cfg.layer_thetas().tolist()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(cfg.n_layers):
+        h, aux_l = _layer_forward(_layer(params["layers"], i), h, cfg,
+                                  windows[i], thetas[i], moe_parallel,
+                                  capacity)
+        if aux_l is not None:
+            aux = aux + aux_l
+    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return h, aux / cfg.n_layers
 
 
@@ -292,23 +386,41 @@ class DecodeState(NamedTuple):
 def init_decode_state(cfg: LMConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, length: int = 0,
                       device=None) -> DecodeState:
-    _require_pure_ssm(cfg)
-    dev = resolve_device(device)
+    """Zeroed caches for ``batch`` sequences of up to ``max_seq`` tokens,
+    ``length`` of them taken.  The KV caches hold ``max_seq`` slots, or
+    the largest window when no layer is global; ``dtype`` is theirs (int8
+    with float32 scales under ``kv_quant``) and the conv state's.
+    ``device``: CUDA by default, the CPU, or ``meta`` for shapes only."""
+    dev = L._param_device(device)
     Lx = cfg.n_layers
     if cfg.kv_quant:
         dtype = torch.int8
-    k = torch.zeros((Lx, batch, 0, cfg.n_kv_heads, cfg.d_head), dtype=dtype,
-                    device=dev)
+    kv_len = 0
+    if cfg.has_attn:
+        kv_len = max_seq
+        if cfg.window_pattern and not any(w == 0 for w in cfg.window_pattern):
+            kv_len = min(max_seq, max(cfg.window_pattern))
+    k = torch.zeros((Lx, batch, kv_len, cfg.n_kv_heads, cfg.d_head),
+                    dtype=dtype, device=dev)
     v = torch.zeros_like(k)
-    ks = torch.zeros((Lx, batch, 0, 0), dtype=torch.float32, device=dev)
-    vs = torch.zeros_like(ks)
-    sd = cfg.ssm_dims
-    conv_dim = sd.d_inner + 2 * sd.n_groups * sd.d_state
-    cdt = torch.bfloat16 if cfg.kv_quant else dtype
-    conv = torch.zeros((Lx, batch, sd.d_conv - 1, conv_dim), dtype=cdt,
-                       device=dev)
-    ssm = torch.zeros((Lx, batch, sd.n_heads, sd.head_dim, sd.d_state),
-                      dtype=torch.float32, device=dev)
+    if cfg.kv_quant and cfg.has_attn:
+        ks = torch.ones((Lx, batch, kv_len, cfg.n_kv_heads),
+                        dtype=torch.float32, device=dev)
+    else:
+        ks = torch.zeros((Lx, batch, 0, 0), dtype=torch.float32, device=dev)
+    vs = torch.ones_like(ks)
+    if cfg.has_ssm:
+        sd = cfg.ssm_dims
+        conv_dim = sd.d_inner + 2 * sd.n_groups * sd.d_state
+        cdt = torch.bfloat16 if cfg.kv_quant else dtype
+        conv = torch.zeros((Lx, batch, sd.d_conv - 1, conv_dim), dtype=cdt,
+                           device=dev)
+        ssm = torch.zeros((Lx, batch, sd.n_heads, sd.head_dim, sd.d_state),
+                          dtype=torch.float32, device=dev)
+    else:
+        conv = torch.zeros((Lx, batch, 0, 0), dtype=dtype, device=dev)
+        ssm = torch.zeros((Lx, batch, 0, 0, 0), dtype=torch.float32,
+                          device=dev)
     return DecodeState(k, v, ks, vs, conv, ssm,
                        torch.tensor(length, dtype=torch.int32, device=dev))
 
@@ -317,22 +429,47 @@ def decode_step(params: Params, cfg: LMConfig, state: DecodeState,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step.  tokens: (B,) integer ids (or (B, d_model)
     embeddings for stub-frontend configs).  Returns (logits (B, V), new
-    state); the state given is not modified."""
-    _require_pure_ssm(cfg)
+    state).  The state's KV caches (and int8 scales) are written IN
+    PLACE, layer by layer through views of their stacked tensors, as the
+    reference's donated buffers are: the new state holds the same K/V
+    tensors.  Its conv and SSM states and its length are new tensors;
+    the given ones are not modified."""
     h = _embed(params, cfg, tokens)[:, None, :]            # (B,1,D)
-    dims = cfg.ssm_dims
+    windows = cfg.layer_windows().tolist()
+    thetas = cfg.layer_thetas().tolist()
+    capacity = moe_capacity(cfg, h.shape[0])
+    pos = state.length
     convs, ssms = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         hn = L.rmsnorm(lp["ln1"], h, cfg.norm_eps)
-        so, conv, ssm = L.ssm_step(lp["ssm"], dims, hn[:, 0, :],
-                                   state.conv_state[i], state.ssm_state[i])
-        h = h + so[:, None, :]
-        convs.append(conv)
-        ssms.append(ssm)
+        if cfg.has_attn:
+            kv = (state.k_cache[i], state.v_cache[i])
+            if cfg.kv_quant:
+                kv += (state.k_scale[i], state.v_scale[i])
+            ao = _attend(lp, hn, cfg, windows[i], thetas[i], kv_cache=kv,
+                         cache_len=pos)
+        if cfg.has_ssm:
+            so, conv, ssm = L.ssm_step(lp["ssm"], cfg.ssm_dims, hn[:, 0, :],
+                                       state.conv_state[i],
+                                       state.ssm_state[i])
+            convs.append(conv)
+            ssms.append(ssm)
+        if cfg.has_attn and cfg.has_ssm:
+            mix = lp["mix"].to(h.dtype)
+            h = h + mix[0] * ao + mix[1] * so[:, None, :]
+        elif cfg.has_attn:
+            h = h + ao
+        else:
+            h = h + so[:, None, :]
+        if cfg.has_ffn:
+            h, _ = _ffn(lp, h, cfg, None, capacity)
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = logits_fn(params, cfg, h)[:, 0, :]
+    conv_state, ssm_state = ((torch.stack(convs), torch.stack(ssms))
+                             if cfg.has_ssm else
+                             (state.conv_state, state.ssm_state))
     new_state = DecodeState(state.k_cache, state.v_cache, state.k_scale,
-                            state.v_scale, torch.stack(convs),
-                            torch.stack(ssms), state.length + 1)
+                            state.v_scale, conv_state, ssm_state,
+                            state.length + 1)
     return logits, new_state
