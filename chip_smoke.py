@@ -160,7 +160,35 @@ and last, with the metrics registry on:
      hymba-1.5b prefill through all 32 layers (B6 32, B8 32, B4 97), each
      with the counts zeroed just before and read just after, CUDA-event
      ms, peak device memory, and one profiled run's idle share and each
-     model kernel's share of device time.
+     model kernel's share of device time;
+ 11. runs the serving plane through ``repro_torch.serving`` and the
+     serve CLI, weights from seed 27: (b) the live failover drill,
+     ``run_drill(DrillSpec())``, on the card (its model's d_head 16 on
+     B5's float32 route; B1 once, B5 twice and B4 five times a decode
+     step, every call one phase 6 holds), equal to the port's CPU run on
+     the card's weights in every verdict field, the actuation log and
+     the traces, with the reference test's SLA contracts (crit
+     availability at its SLO, pre below crit with its alert and its
+     trace below the SLO), its wall seconds, decode steps, ms a step and
+     a device-traced run's idle share; (c) llama3.2-3b's published
+     config (28 layers, bf16) served through the CLI's loop
+     (``launch.serve.serve``: max_batch 8, prompt 16, 16 new tokens, 32
+     requests cycling the tiers, ``enter_failover()`` after 16), B5 28
+     and B4 57 times a decode step, every call one phase 6 holds,
+     timed, profiled, peak device memory, and the same schedule at 2
+     layers fp32 on the card against the port's CPU (counters exact,
+     logits within 1e-4 with the CPU fed the card's tokens, greedy
+     tokens equal wherever the top-2 gap exceeds 1e-3 of max|logit|);
+     (d) the serve CLI (``--requests 32 --failover-at 16``) on the card
+     for the eight reduced archs whose reference CLI runs, in this
+     process, each one's output equal to its ``--device cpu`` run, its
+     model kernels counted (command-r-plus-104b's d 8 on B5) and every
+     call one phase 6 holds; llama3.2-3b's also as ``python -m
+     repro_torch.launch.serve`` in a subprocess.  Phase 6 holds, drawn
+     after its earlier cases, B5 at d 8, 16 and 32 (the drill's and the
+     reduced configs' heads and waves, global and windowed) and at the
+     served llama's 40-slot bf16 cache for waves of 1-8, B7's float32
+     route at the reduced MoE slabs, and B4 at those steps' norms.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
@@ -265,6 +293,25 @@ MODEL10_PREFILL = (
     ("hymba-1.5b prefill", "hymba_1_5b", 32,
      {"flash_attention": 32, "ssd_scan": 32, "rmsnorm": 97}),
 )
+MODEL11_SEED = 27           # phase 11's weights, one seed a run
+# phase 11c: the serve CLI's loop (launch/serve.py serve) over one engine
+# serving llama3.2-3b's published config
+SERVE_FULL = {"max_batch": 8, "prompt_len": 16, "max_new": 16,
+              "requests": 32, "failover_at": 16}
+SERVE_PARITY_LAYERS = 2     # phase 11c's fp32 card-vs-CPU schedule
+# the decode steps (first, count) traced for the idle share: a steady
+# window of the drill's 4,331 steps and of the served llama's 93
+DRILL_WINDOW = (1000, 300)
+SERVE_WINDOW = (40, 20)
+TOKEN_GAP = 1e-3            # of a row's max|logit|: a top-2 gap at most
+#                             this may pick another token on the CPU
+# phase 11d: the reduced archs whose reference CLI runs on the CPU
+# (internvl2-76b's and musicgen-large's stub frontends take embeddings,
+# the CLI hands them token ids, and both packages raise)
+SERVE_ARCHS = ("llama3.2-3b", "qwen3-1.7b", "command-r-plus-104b",
+               "gemma3-4b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
+               "hymba-1.5b", "mamba2-780m")
+SERVE_CLI_ARGS = ("--requests", "32", "--failover-at", "16")
 # phase 6 float32 tolerances (rtol = atol): the reference's own,
 # tests/test_kernels.py
 MODEL_F32_TOL = {"flash_attention": 2e-5, "decode_attention": 3e-5,
@@ -1207,6 +1254,13 @@ def profile_run(what: str, torch, fn, card: str, stats=None) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    return profile_report(what, prof, wall_us, card, stats)
+
+
+def profile_report(what: str, prof, wall_us: float, card: str,
+                   stats=None) -> dict:
+    """``profile_run``'s tables and returns for a finished profile and
+    the wall time it covered."""
     events = prof.key_averages()
     kernels_us = {e.key: e.self_device_time_total for e in events
                   if str(e.device_type).endswith("CUDA")}
@@ -1591,6 +1645,56 @@ def model_cases(torch, device):
     # B8 as hymba-1.5b's bf16 model hands it: float32 inputs
     ssd_case("hymba-1.5b SSM heads fp32", 2, 4096, 50, 1, 64, 16, 256, "", "",
              f32, 10)
+
+    # phase 11's calls, drawn after every earlier case (phase 11 checks
+    # each call its drill, its full-width engine and its serve CLI runs
+    # make against these cases' signatures).  B5's float32 route at small
+    # head dims: d 8 and 16 at the serving drill's H 4, KV 2 against
+    # caches of 16 and 48 slots at lengths 1, 5 and K; the drill's waves
+    # of 1-3 at its 16 slots; d 32.  B4 at the drill's norms (d_model 64)
+    for d in (8, 16):
+        for K in (16, 48):
+            for length in (1, 5, K):
+                decode_case(f"small d: d {d}, H 4 / KV 2, K {K}, length "
+                            f"{length}", (4, 4, 2, d, K), length, 0, f32)
+    for B in (1, 2, 3):
+        decode_case(f"serving drill, wave of {B}: d 16, K 16",
+                    (B, 4, 2, 16, 16), 5, 0, f32)
+    decode_case("small d: d 32, H 8 / KV 2, K 300", (4, 8, 2, 32, 300), 299,
+                0, f32)
+    for B in (1, 2, 3, 4):
+        norm_case(f"serving drill norm, wave of {B}", B, 64, f32)
+    # llama3.2-3b served at full width: B5 against the serve loop's
+    # 40-slot bf16 cache (prompt 16 + 16 new + 8) and B4 over the hidden
+    # state, at every wave size up to max_batch 8 (B4 at 8: above)
+    for B in range(1, 9):
+        decode_case(f"llama3.2-3b served, wave of {B}, 40-slot cache",
+                    (B, 24, 8, 128, 40), 17, 0, bf16)
+    for B in range(1, 8):
+        norm_case(f"llama3.2-3b hidden norm, served wave of {B}", B, 3072,
+                  bf16)
+    # the serve CLI's reduced archs (phase 11d), waves of 1-4 against its
+    # 20-slot caches (prompt 8 + 4 new + 8) at the last step's length 12:
+    # B5 at d 16, H 4 / KV 2 and at command-r-plus-104b's d 8, H 8 / KV 2,
+    # each global and with gemma3-4b's and hymba-1.5b's window 8; B7's
+    # float32 route at phi3.5-moe's (4 experts) and kimi-k2's (8) reduced
+    # slabs, capacity 8, d_model 64, d_ff 96; B4 over qwen3's and
+    # gemma3's qk-norm rows (d_head 16) and hymba's and mamba2's SSM
+    # inner width 128
+    for B in range(1, 5):
+        for H, d in ((4, 16), (8, 8)):
+            for window in (0, 8):
+                decode_case(f"serve CLI: d {d}, H {H} / KV 2, K 20, wave of "
+                            f"{B}, window {window}", (B, H, 2, d, 20), 12,
+                            window, f32)
+    for E in (4, 8):
+        for args in ((f"serve CLI: {E} experts gate / up", E, 8, 64, 96),
+                     (f"serve CLI: {E} experts down", E, 8, 96, 64)):
+            gmm_case(*args, f32, 20, "fma")
+    for R in (2, 4, 6, 8, 12, 16):
+        norm_case(f"serve CLI: qk-norm, {R} rows of 16", R, 16, f32)
+    for B in range(1, 5):
+        norm_case(f"serve CLI: SSM gated norm, wave of {B}", B, 128, f32)
     return ops, cases
 
 
@@ -2907,6 +3011,425 @@ def phase_models(torch, device, card: str, held: set) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the serving plane on the card
+# ---------------------------------------------------------------------------
+
+
+class StepWindow:
+    """The device traced over decode steps ``first`` .. ``first + count
+    - 1`` of a serving run (counted over every engine whose step
+    function ``hook`` wraps): the idle share of a steady window of a run
+    of thousands of steps, whose whole trace would take minutes to
+    read.  The window's wall runs from a synchronise before its first
+    step to one after its last, scheduler rounds between steps
+    included."""
+
+    def __init__(self, torch, first: int, count: int):
+        from torch.profiler import ProfilerActivity, profile
+        self.torch, self.first, self.count, self.n = torch, first, count, 0
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.t0 = self.wall_us = None
+
+    def hook(self, base):
+        def step(*args):
+            if self.n == self.first:
+                self.torch.cuda.synchronize()
+                self.prof.start()
+                self.t0 = time.perf_counter()
+            out = base(*args)
+            self.n += 1
+            if self.n == self.first + self.count:
+                self.torch.cuda.synchronize()
+                self.wall_us = 1e6 * (time.perf_counter() - self.t0)
+                self.prof.stop()
+            return out
+        return step
+
+    def report(self, what: str, card: str) -> dict:
+        check(self.wall_us is not None, f"{what}: {self.n} decode steps, "
+              f"fewer than the window's end {self.first + self.count}")
+        stats = {}
+        profile_report(f"{what}, decode steps {self.first}-"
+                       f"{self.first + self.count - 1}", self.prof,
+                       self.wall_us, card, stats)
+        return stats
+
+
+def drill_fields(rep) -> dict:
+    """What of a ``DrillReport`` card and CPU must share exactly: every
+    verdict field by tier, ``sla_ok``, ``users_served``, the actuation
+    log, the per-step availability traces and the grid."""
+    return {"tiers": {int(t): v.as_dict() for t, v in rep.tiers.items()},
+            "sla_ok": rep.sla_ok, "users_served": rep.users_served,
+            "actuation_log": [(t, int(tier), n)
+                              for t, tier, n in rep.actuation_log],
+            "avail_trace": {int(t): a.tolist()
+                            for t, a in rep.avail_trace.items()},
+            "ts": rep.ts.tolist()}
+
+
+def serve_drill(torch, device, card: str, held: set) -> dict:
+    """Phase 11b: ``run_drill(DrillSpec())`` on the card with the counts
+    zeroed just before and read just after (the timeline simulation's B1
+    once, B5 twice and B4 five times a decode step of the 2-layer model),
+    every kernel call found among ``held``; the same drill on the port's
+    CPU with the card's weights copied across, equal in every field; the
+    reference test's SLA contracts; and one more card run traced on the
+    device for the idle share."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ufa.reduce import timeline_reduce
+    from repro_torch.serving import DrillSpec, run_drill
+    from repro_torch.serving import workload
+    spec = DrillSpec()
+    engines, _ = workload.pool_for(spec, device)
+    n_layers = next(iter(engines.values())).cfg.n_layers
+    workload._sim_for.cache_clear()
+    torch.cuda.synchronize()
+    zero_launches(ops)
+    timeline_reduce.launches = 0
+    with CallRecorder(ops) as calls:
+        t0 = time.perf_counter()
+        rep = run_drill(spec, device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches(ops)
+    b1 = timeline_reduce.launches
+    steps = launches["decode_attention"] // n_layers
+    where = "phase 11b serving drill"
+    check(steps > 0 and b1 == 1 and launches == {
+        **dict.fromkeys(KERNEL_PREFIX, 0), "decode_attention":
+        n_layers * steps, "rmsnorm": (2 * n_layers + 1) * steps},
+        f"{where}: launches {launches}, timeline_reduce {b1}")
+    unheld = calls.signatures - held
+    check(not unheld, f"{where}: kernel calls that phase 6 does not hold "
+          f"against the plain version: {sorted(unheld)}")
+    log(rep.render())
+
+    cpu_engines, _ = workload.pool_for(spec, "cpu")
+    cpu_params = to_cpu(next(iter(engines.values())).params)
+    for e in cpu_engines.values():
+        e.params = cpu_params
+    t0 = time.perf_counter()
+    rep_cpu = run_drill(spec, "cpu")
+    cpu_s = time.perf_counter() - t0
+    got, want = drill_fields(rep), drill_fields(rep_cpu)
+    for k in want:
+        check(got[k] == want[k], f"{where}: {k} differs card vs CPU: "
+              f"{got[k]} vs {want[k]}")
+    crit, pre = rep.crit, rep.pre
+    check(crit.availability >= spec.avail_slo, f"{where}: crit "
+          f"availability {crit.availability} below {spec.avail_slo}")
+    check(pre.availability < crit.availability, f"{where}: pre "
+          f"availability {pre.availability} not below crit's")
+    check(pre.slo_alert, f"{where}: the pre tier's burn-rate alert did "
+          f"not fire")
+    check(float(rep.avail_trace[spec.pre_tier].min()) < spec.avail_slo,
+          f"{where}: the pre tier's availability trace never fell below "
+          f"the SLO")
+
+    window = StepWindow(torch, *DRILL_WINDOW)
+    saved = {name: e._step for name, e in engines.items()}
+    try:
+        for e in engines.values():
+            e._step = window.hook(e._step)
+        run_drill(spec, device)
+    finally:
+        for name, e in engines.items():
+            e._step = saved[name]
+    stats = window.report("serving drill", card)
+    out = {"wall_s": wall, "decode_steps": steps, "ms_a_step":
+           1e3 * wall / steps, "idle_share": stats.get("idle_share"),
+           "launches": launches, "timeline_reduce": b1, "cpu_s": cpu_s,
+           "sla_ok": rep.sla_ok,
+           "crit_availability": crit.availability,
+           "pre_availability": pre.availability,
+           "pre_restore_s": pre.time_to_restore_s}
+    log(f"{where} ok: card == CPU in every verdict field, the actuation "
+        f"log and the traces; {wall:.3f} s wall, {steps} decode steps, "
+        f"{out['ms_a_step']:.3f} ms a step (scheduler included), idle "
+        f"share {out['idle_share']}; CPU run {cpu_s:.3f} s; crit "
+        f"availability {crit.availability:.4f} >= {spec.avail_slo}, pre "
+        f"{pre.availability:.4f} with its alert, restore "
+        f"{pre.time_to_restore_s:.0f} s [{card}]")
+    return out
+
+
+def serve_engine(torch, cfg, params, cache_dtype, step_hook=None):
+    """One ``ServingEngine`` (max_batch 8, prompt 16 + 16 new + 8 cache
+    slots) through the serve CLI's loop: 32 requests cycling the tiers,
+    ``enter_failover()`` after 16.  ``step_hook(base)`` may wrap the
+    engine's decode step."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving import ServingEngine
+    S = SERVE_FULL
+    eng = ServingEngine(cfg, params, max_batch=S["max_batch"],
+                        max_seq=S["prompt_len"] + S["max_new"] + 8,
+                        cache_dtype=cache_dtype)
+    if step_hook is not None:
+        eng._step = step_hook(eng._step)
+    sched = serve(eng, S["requests"], S["prompt_len"], S["max_new"],
+                  S["failover_at"], log=lambda *_: None)
+    return eng, sched
+
+
+def serve_counters(eng, sched) -> dict:
+    return {"scheduler": {k: {int(t): n for t, n in v.items() if n}
+                          for k, v in sched.counters.items()},
+            "engine": {k: {int(t): n for t, n in v.items() if n}
+                       for k, v in eng.counters.items()},
+            "tokens_decoded": eng.tokens_decoded}
+
+
+def serve_full_width(torch, device, card: str, held: set) -> dict:
+    """Phase 11c: llama3.2-3b's published config (28 layers, bf16, from
+    the port's seeded init) served through the CLI's loop with a
+    failover, counted (B5 28 and B4 57 a decode step), every kernel call
+    found among ``held``, timed (a warm run), its peak device memory and
+    a profiled run's idle share; the same counters in a second run."""
+    from repro_torch import models
+    from repro_torch.kernels import ops
+    cfg = arch_config("llama3_2_3b")
+    params = models.init_params(cfg, MODEL11_SEED, device=device)
+    where = "phase 11c llama3.2-3b served"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(ops)
+    with CallRecorder(ops) as calls:
+        t0 = time.perf_counter()
+        eng, sched = serve_engine(torch, cfg, params, torch.bfloat16)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    launches = read_launches(ops)
+    peak = torch.cuda.max_memory_allocated()
+    steps = launches["decode_attention"] // cfg.n_layers
+    check(steps > 0 and launches == {
+        **dict.fromkeys(KERNEL_PREFIX, 0),
+        "decode_attention": cfg.n_layers * steps,
+        "rmsnorm": (2 * cfg.n_layers + 1) * steps},
+        f"{where}: launches {launches}")
+    unheld = calls.signatures - held
+    check(not unheld, f"{where}: kernel calls that phase 6 does not hold "
+          f"against the plain version: {sorted(unheld)}")
+    counters = serve_counters(eng, sched)
+    for r in [r for _, _, r in sched.events if r.state == "done"]:
+        check(len(r.output) == SERVE_FULL["max_new"]
+              and all(0 <= t < cfg.vocab_size for t in r.output),
+              f"{where}: request {r.rid} output {r.output}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng2, sched2 = serve_engine(torch, cfg, params, torch.bfloat16)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    check(serve_counters(eng2, sched2) == counters,
+          f"{where}: a second run's counters differ")
+    window = StepWindow(torch, *SERVE_WINDOW)
+    serve_engine(torch, cfg, params, torch.bfloat16, window.hook)
+    stats = window.report("llama3.2-3b served", card)
+    out = {"config": cfg.name, "layers": cfg.n_layers, "cold_s": cold,
+           "warm_s": warm, "decode_steps": steps,
+           "tokens_decoded": eng.tokens_decoded,
+           "ms_a_step": 1e3 * warm / steps, "peak_bytes": peak,
+           "idle_share": stats.get("idle_share"), "launches": launches,
+           "counters": counters}
+    log(f"{where} ok: {cfg.n_layers} layers bf16, max_batch "
+        f"{SERVE_FULL['max_batch']}, prompt {SERVE_FULL['prompt_len']}, "
+        f"{SERVE_FULL['max_new']} new, {SERVE_FULL['requests']} requests, "
+        f"failover after {SERVE_FULL['failover_at']}: {eng.tokens_decoded} "
+        f"tokens decoded in {steps} decode steps, warm {warm:.3f} s = "
+        f"{out['ms_a_step']:.3f} ms a step (cold {cold:.3f} s); peak "
+        f"device memory {peak / 2**30:.3f} GiB; idle share "
+        f"{out['idle_share']}; launches {launches}; counters "
+        f"{json.dumps(counters)} [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_parity(torch, device, card: str, full_counters: dict) -> dict:
+    """Phase 11c's check: the same schedule at 2 layers in float32, card
+    against the port's CPU on the card's weights.  Counters exact (and
+    equal to the full-width run's, which the schedule alone sets); every
+    step's logits within rtol = atol = ``MODEL7_TOL`` of the CPU's, the
+    CPU fed the card's tokens; each step's greedy token equal wherever
+    the card's top-2 gap exceeds ``TOKEN_GAP`` of the row's max|logit|."""
+    from repro_torch import models
+    cfg = fp32("llama3_2_3b", SERVE_PARITY_LAYERS)
+    params = models.init_params(cfg, MODEL11_SEED + 1, device=device)
+    where = "phase 11c llama3.2-3b served, 2 layers fp32, card vs CPU"
+    rec = []
+
+    def record(base):
+        def step(p, st, tok):
+            lg, st = base(p, st, tok)
+            rec.append((tok.cpu(), lg.clone()))
+            return lg, st
+        return step
+
+    eng, sched = serve_engine(torch, cfg, params, torch.float32, record)
+    torch.cuda.synchronize()
+    cpu_params = to_cpu(params)
+    del params
+    seen = {"steps": 0, "worst": 0.0, "near_ties": 0, "flips": 0}
+
+    def replay(base):
+        def step(p, st, tok):
+            tok_card, lg_card = rec[seen["steps"]]
+            seen["steps"] += 1
+            check(tok.shape == tok_card.shape, f"{where}: step "
+                  f"{seen['steps']} batch {tuple(tok.shape)} vs "
+                  f"{tuple(tok_card.shape)}")
+            lg, st = base(p, st, tok_card)
+            got = lg_card.cpu()
+            d = (got - lg).abs()
+            over = int((d > MODEL7_TOL * (1 + lg.abs())).sum())
+            seen["worst"] = max(seen["worst"], float(d.max()))
+            check(over == 0, f"{where}: step {seen['steps']} logits differ "
+                  f"beyond rtol=atol={MODEL7_TOL} in {over} entries")
+            top = got.topk(2, dim=-1).values
+            gap = top[:, 0] - top[:, 1]
+            tie = gap <= TOKEN_GAP * got.abs().max(dim=-1).values
+            differ = got.argmax(-1) != lg.argmax(-1)
+            seen["near_ties"] += int(tie.sum())
+            seen["flips"] += int(differ.sum())
+            check(not bool((differ & ~tie).any()), f"{where}: step "
+                  f"{seen['steps']}: the CPU's greedy token differs where "
+                  f"the card's top-2 gap exceeds {TOKEN_GAP} of max|logit|")
+            return lg, st
+        return step
+
+    t0 = time.perf_counter()
+    ceng, csched = serve_engine(torch, cfg, cpu_params, torch.float32,
+                                replay)
+    cpu_s = time.perf_counter() - t0
+    check(seen["steps"] == len(rec), f"{where}: {seen['steps']} CPU steps, "
+          f"{len(rec)} on the card")
+    counters = serve_counters(eng, sched)
+    check(serve_counters(ceng, csched) == counters,
+          f"{where}: counters differ card vs CPU")
+    check(counters == full_counters, f"{where}: counters differ from the "
+          f"28-layer run's: {counters} vs {full_counters}")
+    out = {"layers": SERVE_PARITY_LAYERS, "steps": len(rec),
+           "max_abs_err": seen["worst"], "near_ties": seen["near_ties"],
+           "token_flips": seen["flips"], "cpu_s": cpu_s}
+    log(f"{where} ok: counters equal (and equal to the 28-layer run's); "
+        f"{len(rec)} steps' logits within rtol=atol={MODEL7_TOL} (max abs "
+        f"err {seen['worst']:.3g}); greedy tokens equal but at "
+        f"{seen['flips']} near-tie rows of {seen['near_ties']} under a "
+        f"top-2 gap of {TOKEN_GAP} of max|logit|; CPU run {cpu_s:.2f} s "
+        f"[{card}]")
+    del rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def cli_output(main, argv) -> str:
+    buf = io.StringIO()
+    saved = sys.stdout
+    sys.stdout = buf
+    try:
+        main(argv)
+    finally:
+        sys.stdout = saved
+    return buf.getvalue()
+
+
+def serve_cli(torch, card: str, held: set) -> dict:
+    """Phase 11d: the serve CLI (``launch.serve.main``, ``--requests 32
+    --failover-at 16``) on the card for each of ``SERVE_ARCHS``, in this
+    process with the counts zeroed just before and read just after and
+    every kernel call found among ``held``; each run's output equal to
+    the port's ``--device cpu`` run.  llama3.2-3b's also as ``python -m
+    repro_torch.launch.serve`` in a subprocess on the card, started
+    first, its output equal to the same CPU run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    sub_arch = SERVE_ARCHS[0]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         sub_arch, *SERVE_CLI_ARGS], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for arch in SERVE_ARCHS:
+            where = f"phase 11d serve CLI {arch}"
+            cpu = cli_output(serve.main, ["--arch", arch, *SERVE_CLI_ARGS,
+                                          "--device", "cpu"])
+            torch.cuda.synchronize()
+            zero_launches(ops)
+            with CallRecorder(ops) as calls:
+                card_out = cli_output(serve.main, ["--arch", arch,
+                                                   *SERVE_CLI_ARGS])
+                torch.cuda.synchronize()
+            launches = read_launches(ops)
+            check(card_out == cpu, f"{where}: the card's output differs "
+                  f"from the CPU's:\n{card_out}\nvs\n{cpu}")
+            cfg = get_arch(arch).reduced
+            check(launches["rmsnorm"] > 0
+                  and (launches["decode_attention"] > 0) == cfg.has_attn
+                  and (launches["grouped_matmul"] > 0) == cfg.is_moe,
+                  f"{where}: launches {launches}")
+            unheld = calls.signatures - held
+            check(not unheld, f"{where}: kernel calls that phase 6 does not "
+                  f"hold against the plain version: {sorted(unheld)}")
+            out[arch] = {"d_head": cfg.d_head if cfg.has_attn else None,
+                         "launches": launches, "output": cpu}
+            log(f"{where} ok: card == --device cpu (" + "; ".join(
+                line.strip() for line in cpu.rstrip("\n").split("\n")[2:])
+                + f"), launches {json.dumps(launches)}, "
+                f"{len(calls.signatures)} kernel signatures, each held "
+                f"[{card}]")
+        runs_s = time.perf_counter() - t0
+        stdout, stderr = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    where = f"phase 11d serve CLI {sub_arch} (subprocess)"
+    check(proc.returncode == 0, f"{where}: exit {proc.returncode}: "
+          f"{stderr[-2000:]}")
+    check(stdout == out[sub_arch]["output"], f"{where}: the card's output "
+          f"differs from the CPU's:\n{stdout}\nvs\n"
+          f"{out[sub_arch]['output']}")
+    for row in out.values():
+        del row["output"]
+    log(f"phase 11d: {len(SERVE_ARCHS)} CLI runs on the card and on the "
+        f"CPU in this process in {runs_s:.2f} s; {sub_arch}'s subprocess "
+        f"on the card == its CPU run, {wall:.2f} s wall [{card}]")
+    return out
+
+
+def phase_serving(torch, device, card: str, held: set) -> dict:
+    """Phase 11: the serving plane through ``repro_torch.serving`` and
+    ``repro_torch.launch.serve`` on the card, inputs from seed 27: (b)
+    the live failover drill, card == CPU, with the reference test's SLA
+    contracts; (c) llama3.2-3b's published config served through the
+    CLI's loop with a failover, and the same schedule at 2 layers fp32
+    card against CPU; (d) the serve CLI on the card against its CPU run
+    for every reduced arch the reference's CLI serves."""
+    seconds = {}
+    t0 = time.perf_counter()
+    out = {"drill": serve_drill(torch, device, card, held)}
+    seconds["drill"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["served"] = serve_full_width(torch, device, card, held)
+    seconds["served"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["served_parity"] = serve_parity(torch, device, card,
+                                        out["served"]["counters"])
+    seconds["served_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cli"] = serve_cli(torch, card, held)
+    seconds["cli"] = time.perf_counter() - t0
+    log(f"phase 11 seconds by part: {json.dumps(seconds)}")
+    return out
+
+
 def main_grid(n: int) -> dict:
     from repro_torch.core.scenarios import scenario_grid
     from repro_torch.core.sweep_engine import tile_grid
@@ -3190,6 +3713,32 @@ def main() -> int:
         paths.update({f"{label} (phase 10c)": row["launches"][name]
                       for label, row in timed.items()})
         by_name[name]["launches"] = timed[newest]["launches"][name]
+
+    # phase 11: the serving plane (drill, full-width engine, CLI), B1, B4,
+    # B5 and B7 counted
+    t0 = time.perf_counter()
+    served = phase_serving(torch, device, card,
+                           set().union(*(e["held"] for e in k_model)))
+    log(f"phase 11 ok: {time.perf_counter() - t0:.2f} s, "
+        + json.dumps({"drill": {k: served["drill"][k] for k in (
+            "wall_s", "decode_steps", "ms_a_step", "idle_share")},
+            "served": {k: served["served"][k] for k in (
+                "warm_s", "decode_steps", "ms_a_step", "peak_bytes",
+                "idle_share")}}) + f" [{card}]")
+    k_reduce["launches_by_path"]["serving drill (phase 11b)"] = \
+        served["drill"]["timeline_reduce"]
+    for name in ("rmsnorm", "decode_attention", "grouped_matmul"):
+        paths = by_name[name]["launches_by_path"]
+        for label, row in (("serving drill (phase 11b)", served["drill"]),
+                           ("llama3.2-3b served (phase 11c)",
+                            served["served"])):
+            paths[label] = row["launches"][name]
+        for arch, row in served["cli"].items():
+            paths[f"serve CLI {arch} (phase 11d)"] = row["launches"][name]
+    for name in ("rmsnorm", "decode_attention"):
+        by_name[name]["launches"] = served["served"]["launches"][name]
+    by_name["grouped_matmul"]["launches"] = \
+        served["cli"]["phi3.5-moe-42b-a6.6b"]["launches"]["grouped_matmul"]
 
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",

@@ -139,6 +139,12 @@ class TimelineConfig:
     rl_wave_s: float = 120.0
     rl_rto_s: float = float(RTO_SECONDS[FailureClass.RESTORE_LATER])
 
+    def tier_totals(self) -> np.ndarray:
+        """Per-tier spec cores summed over failure classes — the
+        denominator turning the kernel's ``tier_live`` traces into live
+        fractions (``serving.failover`` actuates replicas from these)."""
+        return np.asarray(self.tier_class_cores, np.float64).sum(axis=1)
+
     def as_consts(self, device=None) -> Dict[str, torch.Tensor]:
         """float32 constants on ``device`` (default: the CUDA card)."""
         dev = resolve_device(device)

@@ -69,14 +69,20 @@
 //
 // float32 (route "fma"): scalar IEEE float32 FMAs, whose 3e-5 tolerance
 // rules out bf16 and TF32 products.  One block of four warps per (split,
-// sub-group of at most 8 query heads, sequence); each warp walks its
-// positions four at a time and requests the four K rows and the four V
-// rows of a step before it uses any.  A lane holds d / 32 elements of a
-// row; the sub-group's query rows and accumulators stay in registers,
-// sized by the sub-group rounded up to 1, 2, 4 or 8.  Scores are warp
-// all-reduces, and the warps merge through shared memory.  The caches
-// are read through their strides on both routes, so the model layout is
-// never transposed.
+// sub-group of at most 8 query heads, sequence).  A row of d elements is
+// held by a lane group of LPR lanes, EPL elements a lane: for d >= 64 the
+// whole warp (LPR 32, EPL d / 32); below, four elements a lane (one
+// 16-byte load) and 32 / LPR groups a warp (d 32: 4 groups of 8 lanes,
+// d 16: 8 of 4, d 8: 16 of 2).  Each lane group walks its own positions
+// four at a time and requests the four K rows and the four V rows of a
+// step before it uses any; the groups of a warp take neighbouring
+// positions of one step, so the warp's loop stays uniform and its
+// shuffles full.  The sub-group's query rows and accumulators stay in
+// registers, sized by the sub-group rounded up to 1, 2, 4 or 8.  Scores
+// are all-reduces over a lane group (__shfl_xor_sync at offsets below
+// LPR), and every lane group's (m, l, acc) is merged through shared
+// memory at the end of the block.  The caches are read through their
+// strides on both routes, so the model layout is never transposed.
 
 #include "hopper.cuh"
 
@@ -110,10 +116,30 @@ __device__ __forceinline__ Range split_range(int length, int window, int K,
 #define U 4      // positions a warp takes per step
 #define FMA_G 8  // query heads a block, at most
 
+// The float32 kernel's row layout for head size DH: elements a lane, lanes
+// a row, rows (lane groups) a warp.
+template <int DH>
+struct Lanes {
+  static constexpr int EPL = DH >= 64 ? DH / 32 : 4;
+  static constexpr int LPR = DH / EPL;
+  static constexpr int NG = 32 / LPR;
+  static_assert(EPL * LPR == DH && NG * LPR == 32, "d in 8, 16, ..., 256");
+};
+
+// the sum of v over the LPR lanes of each aligned lane group (the whole
+// warp for LPR 32), in every lane of the group
+template <int LPR>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // G: the block's sub-group size rounded up to 1, 2, 4 or 8 (gs <= G query
 // heads are live; the registers are sized by G).  Blocks (sp, n * n_sub +
 // sub, b): heads n g + sub gsz .. + gs - 1.
-template <int EPL, int G>
+template <int DH, int G>
 __global__ void __launch_bounds__(NW * 32)
 decode_partial_kernel(const float* __restrict__ q,
                       const float* __restrict__ kc,
@@ -123,11 +149,14 @@ decode_partial_kernel(const float* __restrict__ q,
                       const int* len_dev, int len_host, const int* win_dev,
                       int win_host, float scale, float* __restrict__ part_acc,
                       float* __restrict__ part_ml) {
-  constexpr int DH = 32 * EPL;
+  constexpr int EPL = Lanes<DH>::EPL, LPR = Lanes<DH>::LPR;
+  constexpr int NG = Lanes<DH>::NG, NV = NW * NG;  // lane groups a block
   const int sp = blockIdx.x, b = blockIdx.z;
   const int n = blockIdx.y / n_sub, sub = blockIdx.y % n_sub;
   const int h0 = n * g + sub * gsz, gs = min(gsz, g - sub * gsz);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / LPR, col = (lane % LPR) * EPL;
+  const int vg = warp * NG + grp;  // the lane group's index in the block
   const Range r = split_range(len_dev ? *len_dev : len_host,
                               win_dev ? *win_dev : win_host, K, sp, nsplit);
   const int lo = max(r.lo, r.t_begin * BK), hi = min(r.hi, r.t_end * BK);
@@ -140,15 +169,18 @@ decode_partial_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int t = 0; t < EPL; ++t) acc[j][t] = qf[j][t] = 0.f;
     if (j < gs) {
-      load_f<EPL>(q + ((long long)b * H + h0 + j) * DH + lane * EPL, qf[j]);
+      load_f<EPL>(q + ((long long)b * H + h0 + j) * DH + col, qf[j]);
 #pragma unroll
       for (int t = 0; t < EPL; ++t) qf[j][t] *= scale;
     }
   }
 
-  const float* kbase = kc + b * kb + n * kn + lane * EPL;
-  const float* vbase = vc + b * vb + n * vn + lane * EPL;
-  for (int p0 = lo + warp * U; p0 < hi; p0 += NW * U) {
+  const float* kbase = kc + b * kb + n * kn + col;
+  const float* vbase = vc + b * vb + n * vn + col;
+  // the warp's step starts at pw, its lane group's at p0 = pw + grp U; the
+  // loop runs while any group of the warp has a position
+  for (int pw = lo + warp * NG * U; pw < hi; pw += NV * U) {
+    const int p0 = pw + grp * U;
     // every K and V row of the step is requested before any is used
     float kr[U][EPL], vr[U][EPL];
 #pragma unroll
@@ -169,13 +201,14 @@ decode_partial_kernel(const float* __restrict__ q,
         float d = 0.f;
 #pragma unroll
         for (int t = 0; t < EPL; ++t) d = fmaf(qf[j][t], kr[u][t], d);
-        s[u][j] = warp_sum(d);
+        s[u][j] = group_sum<LPR>(d);
       }
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      float mt = s[0][j];  // p0 < hi: position 0 of the step is valid
+      // a group past hi has no valid position: m stays, alpha is 1
+      float mt = NEG_INF;
 #pragma unroll
-      for (int u = 1; u < U; ++u)
+      for (int u = 0; u < U; ++u)
         if (p0 + u < hi) mt = fmaxf(mt, s[u][j]);
       const float m_new = fmaxf(m[j], mt);
       const float alpha = expf(m[j] - m_new);
@@ -193,27 +226,27 @@ decode_partial_kernel(const float* __restrict__ q,
     }
   }
 
-  // merge the four warps' states, then one partial per query head
-  __shared__ float sm_m[NW][G], sm_l[NW][G];
-  __shared__ float sm_acc[NW][G][DH];
+  // merge the block's lane groups' states, then one partial per query head
+  __shared__ float sm_m[NV][G], sm_l[NV][G];
+  __shared__ float sm_acc[NV][G][DH];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
-    if (lane == 0) {
-      sm_m[warp][j] = m[j];
-      sm_l[warp][j] = l[j];
+    if (lane % LPR == 0) {
+      sm_m[vg][j] = m[j];
+      sm_l[vg][j] = l[j];
     }
 #pragma unroll
-    for (int t = 0; t < EPL; ++t) sm_acc[warp][j][lane * EPL + t] = acc[j][t];
+    for (int t = 0; t < EPL; ++t) sm_acc[vg][j][col + t] = acc[j][t];
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < gs * DH; idx += NW * 32) {
     const int j = idx / DH, c = idx % DH;
     float M = NEG_INF;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w][j]);
+    for (int w = 0; w < NV; ++w) M = fmaxf(M, sm_m[w][j]);
     float L = 0.f, A = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
+    for (int w = 0; w < NV; ++w) {
       const float f = expf(sm_m[w][j] - M);
       L += sm_l[w][j] * f;
       A += sm_acc[w][j][c] * f;
@@ -543,7 +576,7 @@ static void sub_groups(int g, int most, int* n_sub, int* gsz) {
   *gsz = (g + *n_sub - 1) / *n_sub;
 }
 
-template <int EPL, int G>
+template <int DH, int G>
 static cudaError_t launch_f32(const void* q, const void* k, const void* v,
                               const long long* ks, const long long* vs,
                               int B, int H, int KV, int K, int nsplit,
@@ -555,14 +588,14 @@ static cudaError_t launch_f32(const void* q, const void* k, const void* v,
   int n_sub, gsz;
   sub_groups(g, FMA_G, &n_sub, &gsz);
   const dim3 grid(nsplit, KV * n_sub, B);
-  decode_partial_kernel<EPL, G><<<grid, NW * 32, 0, st>>>(
+  decode_partial_kernel<DH, G><<<grid, NW * 32, 0, st>>>(
       (const float*)q, (const float*)k, (const float*)v, ks[0], ks[1], ks[2],
       vs[0], vs[1], vs[2], H, K, g, gsz, n_sub, nsplit, len_dev, len_host,
       win_dev, win_host, scale, part_acc, part_ml);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<float, false><<<B * H, 32 * EPL, 0, st>>>(
-      part_acc, part_ml, (float*)out, nsplit, 32 * EPL);
+  decode_combine_kernel<float, false><<<B * H, DH, 0, st>>>(
+      part_acc, part_ml, (float*)out, nsplit, DH);
   return cudaGetLastError();
 }
 
@@ -648,20 +681,23 @@ extern "C" int decode_attention_blocks_per_sm(int dh, int g, int dt,
     }
 #undef DEC_OCC
   } else if (dt == DT_F32) {
-#define DEC_OCC(E, GG)                                                      \
+#define DEC_OCC(D, GG)                                                      \
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(                \
-      blocks, decode_partial_kernel<E, GG>, NW * 32, 0)
-#define DEC_OCC_G(E)                  \
+      blocks, decode_partial_kernel<D, GG>, NW * 32, 0)
+#define DEC_OCC_G(D)                  \
   switch (f32_tier(g)) {              \
-    case 1: DEC_OCC(E, 1);            \
-    case 2: DEC_OCC(E, 2);            \
-    case 4: DEC_OCC(E, 4);            \
-    default: DEC_OCC(E, 8);           \
+    case 1: DEC_OCC(D, 1);            \
+    case 2: DEC_OCC(D, 2);            \
+    case 4: DEC_OCC(D, 4);            \
+    default: DEC_OCC(D, 8);           \
   }
     switch (dh) {
-      case 64: DEC_OCC_G(2);
-      case 128: DEC_OCC_G(4);
-      case 256: DEC_OCC_G(8);
+      case 8: DEC_OCC_G(8);
+      case 16: DEC_OCC_G(16);
+      case 32: DEC_OCC_G(32);
+      case 64: DEC_OCC_G(64);
+      case 128: DEC_OCC_G(128);
+      case 256: DEC_OCC_G(256);
     }
 #undef DEC_OCC_G
 #undef DEC_OCC
@@ -673,9 +709,10 @@ extern "C" int decode_attention_blocks_per_sm(int dh, int g, int dt,
 // element strides {kb, kp, kn} / {vb, vp, vn} = {batch, position, head};
 // out (B, H, dh).  part_acc: B * H * nsplit * dh floats, part_ml:
 // B * H * nsplit * 2.  len_dev / win_dev: device int32 or NULL (then
-// len_host / win_host).  dh in {64, 128, 256}, any group H / KV.  dt
-// picks the route: DT_BF16 the TMA ring on mma.sync (16-byte aligned
-// caches with byte strides that are multiples of 16), DT_F32 scalar FMAs.
+// len_host / win_host).  Any group H / KV.  dt picks the route: DT_BF16
+// the TMA ring on mma.sync, dh in {64, 128, 256} (16-byte aligned caches
+// with byte strides that are multiples of 16), DT_F32 scalar FMAs, dh in
+// {8, 16, 32, 64, 128, 256}.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, long long kb, long long kp,
     long long kn, long long vb, long long vp, long long vn, int B, int H,
@@ -698,17 +735,20 @@ extern "C" int decode_attention_launch(
       case 256: return (int)launch_bf16<256>(DEC_ARGS);
     }
   } else if (dt == DT_F32) {
-#define DEC_F32(E)                                                          \
+#define DEC_F32(D)                                                          \
   switch (f32_tier(H / KV)) {                                               \
-    case 1: return (int)launch_f32<E, 1>(DEC_ARGS);                         \
-    case 2: return (int)launch_f32<E, 2>(DEC_ARGS);                         \
-    case 4: return (int)launch_f32<E, 4>(DEC_ARGS);                         \
-    default: return (int)launch_f32<E, 8>(DEC_ARGS);                        \
+    case 1: return (int)launch_f32<D, 1>(DEC_ARGS);                         \
+    case 2: return (int)launch_f32<D, 2>(DEC_ARGS);                         \
+    case 4: return (int)launch_f32<D, 4>(DEC_ARGS);                         \
+    default: return (int)launch_f32<D, 8>(DEC_ARGS);                        \
   }
     switch (dh) {
-      case 64: DEC_F32(2);
-      case 128: DEC_F32(4);
-      case 256: DEC_F32(8);
+      case 8: DEC_F32(8);
+      case 16: DEC_F32(16);
+      case 32: DEC_F32(32);
+      case 64: DEC_F32(64);
+      case 128: DEC_F32(128);
+      case 256: DEC_F32(256);
     }
 #undef DEC_F32
   }

@@ -152,7 +152,11 @@ def test_import_boundary_subprocess():
             "repro_torch.chaos.topology",
             "repro_torch.optim", "repro_torch.optim.adamw",
             "repro_torch.optim.capacity",
-            "repro_torch.core.overcommit_sim"} <= set(mods)
+            "repro_torch.core.overcommit_sim",
+            "repro_torch.serving", "repro_torch.serving.engine",
+            "repro_torch.serving.scheduler", "repro_torch.serving.failover",
+            "repro_torch.serving.workload", "repro_torch.launch",
+            "repro_torch.launch.serve"} <= set(mods)
 
 
 def test_import_boundary_source_grep():
@@ -175,7 +179,9 @@ def test_import_boundary_source_grep():
         "obs/export.py", "chaos/__init__.py", "chaos/faults.py",
         "chaos/campaign.py", "chaos/report.py", "chaos/topology.py",
         "optim/__init__.py", "optim/adamw.py", "optim/capacity.py",
-        "core/overcommit_sim.py")} <= set(files)
+        "core/overcommit_sim.py", "serving/__init__.py", "serving/engine.py",
+        "serving/scheduler.py", "serving/failover.py", "serving/workload.py",
+        "launch/__init__.py", "launch/serve.py")} <= set(files)
     # the pattern sees an import inside a function
     assert pat.search("def sync(tree):\n    import jax\n")
 

@@ -196,6 +196,28 @@ def test_decode_attention_edge_lengths(length, as_tensor):
             rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("length,window", [(1, 0), (5, 0), (16, 0), (13, 8)])
+@pytest.mark.parametrize("d,H,KV,K", [(16, 4, 2, 16), (16, 4, 4, 48),
+                                      (8, 8, 2, 48), (8, 4, 2, 16)])
+def test_decode_attention_small_head_dims(d, H, KV, K, length, window):
+    """The head dims B5's float32 route takes for the serving drill's
+    model and the reduced configs (d 16, command-r-plus-104b's d 8, the
+    reduced gemma3's window 8), at the drill's 16-slot cache and a
+    48-slot one: the plain version a CPU tensor takes against the
+    reference's Pallas kernel in interpret mode and its oracle."""
+    B = 3
+    (q, qt), (kc, kct), (vc, vct) = _decode_inputs(
+        100 + d + K + length, B, H, KV, K, d)
+    got = ops.decode_attention(qt, kct, vct, length, window)
+    assert got.dtype == torch.float32 and got.shape == (B, H, d)
+    _close(got, ref_ops.decode_attention(q, kc, vc, length, window,
+                                         block_k=16, interpret=True),
+           "decode", F32)
+    _close(got, ref_oracle.ref_decode_attention(q, kc, vc, length,
+                                                window=window),
+           "decode", F32)
+
+
 @pytest.mark.parametrize("length,window", [(400, 128), (512, 0)])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 @pytest.mark.parametrize("group", [12, 5])

@@ -502,7 +502,8 @@ def test_kernel_checks_pass_at_full_width(module):
     attention shapes: prefill q/k/v, and decode q against each layer's
     cache view of the stacked decode state.  B7 takes its wgmma route on
     the MoE configs' expert slabs.  The reduced configs' heads (16 or 8)
-    are refused by both attention kernels."""
+    are refused by B6 and by B5's bf16 route (its TMA boxes are 64
+    wide); B5's float32 route takes them."""
     cfg = PORT_ARCH[module].CONFIG
     assert b6.check_inputs(*_meta_prefill(cfg), window=1024) == 1
     st = models.init_decode_state(cfg, 8, 4352, device="meta")
@@ -525,8 +526,37 @@ def test_kernel_checks_pass_at_full_width(module):
         b6.check_inputs(*_meta_prefill(small, S=64))
     sq = torch.empty((2, small.n_heads, small.d_head), device="meta")
     sc = torch.empty((2, 64, small.n_kv_heads, small.d_head), device="meta")
-    with pytest.raises(ValueError, match="takes d in"):
-        b5.check_inputs(sq, sc, sc)
+    assert b5.check_inputs(sq, sc, sc) == 0
+    with pytest.raises(ValueError, match="takes d in.*ROADMAP.md"):
+        b5.check_inputs(*(t.to(torch.bfloat16) for t in (sq, sc, sc)))
+
+
+# the serving drill's model (repro/serving/workload.py _LM)
+DRILL_LM = models.LMConfig(name="live-drill", n_layers=2, d_model=64,
+                           n_heads=4, n_kv_heads=2, d_head=16, d_ff=128,
+                           vocab_size=128, tie_embeddings=True)
+
+
+@pytest.mark.parametrize("batch,max_seq", [(8, 20), (4, 16), (1, 16)])
+@pytest.mark.parametrize("cfg", [PORT_ARCH[m].REDUCED for m in ARCH_MODULES
+                                 if PORT_ARCH[m].REDUCED.has_attn]
+                         + [DRILL_LM], ids=lambda c: c.name)
+def test_decode_checks_pass_at_reduced_and_drill_shapes(cfg, batch, max_seq):
+    """B5's checks (the float32 route's head dims 8 and 16, the group,
+    row alignment) on meta tensors at the decode shapes the serve CLI
+    (batch up to 8, prompt 8 + 4 new + 8 slots) and the serving drill
+    (waves of 1-4, 4 + 4 + 8 slots) give it: q against each layer's
+    cache view of the stacked float32 decode state.  The same shapes in
+    bf16 are refused, naming the gap in ROADMAP.md."""
+    st = models.init_decode_state(cfg, batch, max_seq, torch.float32,
+                                  device="meta")
+    q = torch.empty((batch, cfg.n_heads, cfg.d_head), device="meta")
+    assert cfg.d_head in (8, 16) and cfg.d_head in b5.HEAD_DIMS["fma"]
+    for i in range(cfg.n_layers):
+        assert b5.check_inputs(q, st.k_cache[i], st.v_cache[i]) == 0
+    k16, v16 = (c[0].to(torch.bfloat16) for c in (st.k_cache, st.v_cache))
+    with pytest.raises(ValueError, match="takes d in.*ROADMAP.md"):
+        b5.check_inputs(q.to(torch.bfloat16), k16, v16)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
