@@ -188,7 +188,41 @@ and last, with the metrics registry on:
      after its earlier cases, B5 at d 8, 16 and 32 (the drill's and the
      reduced configs' heads and waves, global and windowed) and at the
      served llama's 40-slot bf16 cache for waves of 1-8, B7's float32
-     route at the reduced MoE slabs, and B4 at those steps' norms.
+     route at the reduced MoE slabs, and B4 at those steps' norms;
+ 12. runs the training path through ``repro_torch.train``, weights and
+     inputs from seed 28: (a) each of B4, B6, B7 and B8 through its
+     ``torch.autograd.Function`` at one full-width shape of (c): the
+     forward launches the kernel once and equals the wrapper's output,
+     the input gradients equal ``torch.autograd.grad`` through the plain
+     version on the same card tensors bit for bit; (b) the train CLI
+     (``launch.train.main``, ``--steps 3`` at ``--batch 8 --seq 64``) on
+     the card for the eight reduced archs whose reference CLI runs, in
+     this process, each one's first line equal to its ``--device cpu``
+     run and its per-step losses within 1e-4, three steps' launches,
+     every call held in phase 6 (internvl2-76b and musicgen-large raise,
+     as the reference CLI does); (c) at full width, bf16, remat "full",
+     B 2 x S 2,048 from ``SyntheticLMDataset``: qwen3-1.7b, all 28
+     layers, the main path, through ``Trainer`` for 4 steps with its
+     final checkpoint, ``maybe_resume`` into a fresh state equal to the
+     trained one bit for bit, then 2 more steps from the resumed and
+     from the trained state under ``torch.use_deterministic_algorithms``,
+     equal bit for bit; mamba2-780m, all 48 layers, and phi3.5-moe, 2 of
+     its 32 layers (the depth cut: 32 layers of bf16 parameters, grads
+     and moments do not fit 80 GB), 2 Trainer steps each, checkpoint and
+     resume; every parameter's gradient non-zero on step 1, the
+     launches a step (each forward kernel twice under remat), every
+     call held in phase 6, ms a step, tokens/s, peak memory, a profiled
+     step's idle share and the checkpoint's save and load seconds; (d)
+     ``tests/test_system.py``'s story on the card (a critical serving
+     engine beside a preemptible trainer, the orchestrator's eviction
+     hook preempting it, T1 unharmed and T5 dark, the trainer resumed
+     from its checkpoint, failback) with the test's contracts, its
+     verdicts equal to the CPU run's.  Phase 6 holds, drawn after its
+     earlier cases, every call phase 12 makes: the full-width training
+     norms and attentions and mamba2-780m's SSD, B6's float32 route at
+     d 8 and 16 (causal and windowed, S not a multiple of the tile), the
+     train CLI's reduced shapes (B8 on views into the conv output) and
+     the story's.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
@@ -205,7 +239,9 @@ further from a float64 evaluation than its plain version (or within
 1e-5 of it); the model's card forward within rtol = atol = 1e-4 of the
 CPU run and its teacher-forced decode within 2e-3 of max|logit| of the
 forward (the CPU tests' tolerances), an int8-cache decode within 0.05
-of max|logit|, and expert ids and positions exact.  Any failure exits
+of max|logit|, expert ids and positions exact, the kernels' gradients
+and the resumed training states bit for bit, and training losses card
+vs CPU within 1e-4 (float32, three steps).  Any failure exits
 non-zero.  The last two lines of
 standard output are a JSON object of the kernels' numbers and the JSON
 result line; without a CUDA device the script exits 2 and prints no
@@ -216,6 +252,12 @@ one.
 
 from __future__ import annotations
 
+import os
+
+# cuBLAS's deterministic workspace (phase 12c runs under
+# torch.use_deterministic_algorithms), set before torch is imported
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import cProfile
 import dataclasses
 import gc
@@ -223,7 +265,6 @@ import importlib
 import io
 import itertools
 import json
-import os
 import pstats
 import subprocess
 import sys
@@ -294,6 +335,23 @@ MODEL10_PREFILL = (
      {"flash_attention": 32, "ssd_scan": 32, "rmsnorm": 97}),
 )
 MODEL11_SEED = 27           # phase 11's weights, one seed a run
+TRAIN_SEED = 28             # phase 12's weights and inputs
+TRAIN_SHAPE = (2, 2048)     # phase 12c: batch x sequence
+# phase 12c: (label, config module, layers, Trainer steps); the first is
+# the main path.  phi3.5-moe keeps 2 of its 32 layers: bf16 params, grads
+# and AdamW moments of 32 layers (~42 B parameters) do not fit 80 GB
+TRAIN_FULL = (("qwen3-1.7b", "qwen3_1_7b", 28, 4),
+              ("mamba2-780m", "mamba2_780m", 48, 2),
+              ("phi3.5-moe", "phi3_5_moe_42b_a6_6b", 2, 2))
+TRAIN_MORE_STEPS = 2        # phase 12c: steps after the resume, both ways
+TRAIN_CLI_ARGS = ("--steps", "3")   # phase 12b, at --batch 8 --seq 64
+# phase 12b / 12d, card vs CPU, per-step losses after up to 3 AdamW steps
+# in float32: both run the same algorithm in float32 (no TF32) with sums
+# in other orders (cuBLAS against the CPU's BLAS, the kernels against
+# their plain versions, held at the reference's float32 tolerances, 1e-5
+# to 2e-5, B8 in split TF32); the CPU tests hold the port to the
+# reference at 1e-5 a step, and three updates may compound it
+TRAIN_LOSS_RTOL = 1e-4
 # phase 11c: the serve CLI's loop (launch/serve.py serve) over one engine
 # serving llama3.2-3b's published config
 SERVE_FULL = {"max_batch": 8, "prompt_len": 16, "max_new": 16,
@@ -1526,14 +1584,25 @@ def model_cases(torch, device):
     # P 64, N 128, one group, chunk 256) over B 2 x S 4,096, fp32 (what the
     # model hands it) and bf16; hymba-1.5b's SSM heads (H 50, N 16); edges
     def ssd_case(label, B, S, H, G, P, N, chunk, dt_kind, a_kind, dtype,
-                 reps):
-        x = randn(B, S, H, P, dtype=dtype)
+                 reps, views=False):
+        if views:
+            # x, b and c as views into one conv output (G 1), the way
+            # ssm_apply hands them to B8 in a float32 model
+            conv = randn(B, S, H * P + 2 * N, dtype=dtype)
+            x = conv[..., :H * P].reshape(B, S, H, P)
+        else:
+            x = randn(B, S, H, P, dtype=dtype)
         z = randn(B, S, H, dtype=f32)
         dt = F.softplus(z) + (2.0 if dt_kind == "strong" else 0.0)
         a = -torch.exp(randn(H, dtype=f32))
         if a_kind == "near 0":
             a = a * 1e-5
-        b, c = randn(B, S, G, N, dtype=dtype), randn(B, S, G, N, dtype=dtype)
+        if views:
+            b = conv[..., H * P:H * P + N].reshape(B, S, G, N)
+            c = conv[..., H * P + N:].reshape(B, S, G, N)
+        else:
+            b = randn(B, S, G, N, dtype=dtype)
+            c = randn(B, S, G, N, dtype=dtype)
         size = x.element_size()
         tri, nc = chunk * (chunk + 1) // 2, S // chunk
         # C B^T over the causal half, once per group: the heads of a group
@@ -1695,6 +1764,71 @@ def model_cases(torch, device):
         norm_case(f"serve CLI: qk-norm, {R} rows of 16", R, 16, f32)
     for B in range(1, 5):
         norm_case(f"serve CLI: SSM gated norm, wave of {B}", B, 128, f32)
+
+    # phase 12's calls, drawn after every earlier case (phase 12 checks
+    # each call its training runs make against these cases' signatures;
+    # a training step's forward calls, recomputed under remat, are its
+    # only kernel calls: the backward is the plain versions').  (c) full
+    # width, B 2 x S 2,048, bf16: qwen3-1.7b's hidden norm and qk-norm (16
+    # query and 8 KV heads of d 128) and its attention; mamba2-780m's
+    # norms (d_model 1,536, gated 3,072) and its float32 SSD (contiguous:
+    # the bf16 model's .float() copies); phi3.5-moe's hidden norm and
+    # attention (32 heads); its experts at capacity 640 are held above
+    for label, R, D in (("qwen3-1.7b hidden norm, train", 4096, 2048),
+                        ("qwen3-1.7b q-norm, train", 65536, 128),
+                        ("qwen3-1.7b k-norm, train", 32768, 128),
+                        ("mamba2-780m ln1 / final_norm, train", 4096, 1536),
+                        ("mamba2-780m gated norm, train", 4096, 3072),
+                        ("phi3.5-moe hidden norm, train", 4096, 4096)):
+        norm_case(label, R, D, bf16)
+    for args in (("qwen3-1.7b train", 2, 2048, 16, 128, True, 0, bf16, 5),
+                 ("phi3.5-moe train", 2, 2048, 32, 128, True, 0, bf16, 5)):
+        flash_case(*args)
+    ssd_case("mamba2-780m SSD, train", 2, 2048, 48, 1, 64, 128, 256, "", "",
+             f32, 10)
+    # B6's float32 route at d 8 and 16: causal and windowed, S not a
+    # multiple of the 64-row tile
+    for args in (("edge: d 8, ragged S", 1, 200, 3, 8, True, 0, f32, 20),
+                 ("edge: d 8, window 50", 1, 300, 2, 8, True, 50, f32, 20),
+                 ("edge: d 16, ragged S, not causal", 1, 131, 3, 16, False,
+                  0, f32, 20),
+                 ("edge: d 16, window 24", 2, 200, 2, 16, True, 24, f32,
+                  20)):
+        flash_case(*args)
+    # (b) the train CLI's reduced archs (--batch 8 --seq 64), float32: B6
+    # at d 16 (H 4; gemma3-4b's and hymba-1.5b's window 8) and
+    # command-r-plus-104b's d 8 (H 8); B4 over the hidden state (512 x
+    # 64), the qk-norm rows (q 2,048, k 1,024 of 16) and the SSM gated
+    # norm (512 x 128); B7 at phi3.5-moe's 4 experts (capacity 320) and
+    # kimi-k2's 8 (capacity 160); B8 at hymba-1.5b's (N 8) and
+    # mamba2-780m's (N 16) SSM heads (H 8, P 16, chunk 8), x, b and c
+    # views into the conv output
+    for args in (("train CLI: d 16, H 4", 8, 64, 4, 16, True, 0, f32, 20),
+                 ("train CLI: d 16, H 4, window 8", 8, 64, 4, 16, True, 8,
+                  f32, 20),
+                 ("train CLI: d 8, H 8", 8, 64, 8, 8, True, 0, f32, 20)):
+        flash_case(*args)
+    for label, R, D in (("train CLI: hidden norm", 512, 64),
+                        ("train CLI: q-norm", 2048, 16),
+                        ("train CLI: k-norm", 1024, 16),
+                        ("train CLI: SSM gated norm", 512, 128)):
+        norm_case(label, R, D, f32)
+    for E, C in ((4, 320), (8, 160)):
+        for args in ((f"train CLI: {E} experts gate / up", E, C, 64, 96),
+                     (f"train CLI: {E} experts down", E, C, 96, 64)):
+            gmm_case(*args, f32, 20, "fma")
+    for N in (8, 16):
+        ssd_case(f"train CLI: SSM heads N {N}, conv-output views", 8, 64, 8,
+                 1, 16, N, 8, "", "", f32, 20, views=True)
+    # (d) the paper's story: its 2-layer d_model-64 model (d_head 16)
+    # trained at B 4 x S 16 (B6 d 16, B4 over 64 rows) and served from a
+    # 48-slot cache in waves of 1-3 (the wave of 4 is held above)
+    flash_case("system story train: d 16, H 4", 4, 16, 4, 16, True, 0, f32,
+               20)
+    norm_case("system story train: hidden norm", 64, 64, f32)
+    for B in (1, 2, 3):
+        decode_case(f"system story: wave of {B}, d 16, K 48",
+                    (B, 4, 2, 16, 48), 9, 0, f32)
     return ops, cases
 
 
@@ -1915,8 +2049,12 @@ def phase_model_kernels(torch, device, card: str) -> list:
 
 
 def to_cpu(tree):
-    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
-            for k, v in tree.items()}
+    return to_device(tree, "cpu")
+
+
+def to_device(tree, device):
+    return {k: to_device(v, device) if isinstance(v, dict)
+            else v.to(device) for k, v in tree.items()}
 
 
 def host_tokens(cfg, B: int, S: int, seed: int) -> np.ndarray:
@@ -3323,15 +3461,20 @@ def serve_parity(torch, device, card: str, full_counters: dict) -> dict:
     return out
 
 
-def cli_output(main, argv) -> str:
+def cli_run(main, argv):
+    """``(what main(argv) printed, what it returned)``."""
     buf = io.StringIO()
     saved = sys.stdout
     sys.stdout = buf
     try:
-        main(argv)
+        result = main(argv)
     finally:
         sys.stdout = saved
-    return buf.getvalue()
+    return buf.getvalue(), result
+
+
+def cli_output(main, argv) -> str:
+    return cli_run(main, argv)[0]
 
 
 def serve_cli(torch, card: str, held: set) -> dict:
@@ -3427,6 +3570,565 @@ def phase_serving(torch, device, card: str, held: set) -> dict:
     out["cli"] = serve_cli(torch, card, held)
     seconds["cli"] = time.perf_counter() - t0
     log(f"phase 11 seconds by part: {json.dumps(seconds)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the training path
+# ---------------------------------------------------------------------------
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches of one train step of ``cfg``: each layer's forward
+    calls (ln1, qk-norm, the SSM's gated norm, ln2 on B4; B6, B7's three
+    products, B8), run twice under remat (the forward, then its
+    recomputation in the backward pass), and the final norm once.  The
+    backward is the plain versions' and launches nothing."""
+    per = {"rmsnorm": (1 + 2 * (cfg.has_attn and cfg.qk_norm)
+                       + cfg.has_ssm + cfg.has_ffn),
+           "decode_attention": 0, "flash_attention": int(cfg.has_attn),
+           "grouped_matmul": 3 * cfg.is_moe, "ssd_scan": int(cfg.has_ssm)}
+    times = cfg.n_layers * (1 if cfg.remat == "none" else 2)
+    out = {k: v * times for k, v in per.items()}
+    out["rmsnorm"] += 1
+    return out
+
+
+def same_tree(got, want, where: str) -> int:
+    """Every leaf of two trees (checkpoint paths) equal bit for bit, dtype
+    and shape included; returns the number of leaves."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    g, w = _flatten_with_paths(got), _flatten_with_paths(want)
+    check([p for p, _ in g] == [p for p, _ in w], f"{where}: leaf paths "
+          f"differ")
+    for (path, a), (_, b) in zip(g, w):
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and bool(a.eq(b).all()), f"{where}: {path} differs")
+    return len(g)
+
+
+def phase_autograd(torch, device, card: str, held: set) -> dict:
+    """Phase 12a: each model kernel's ``torch.autograd.Function`` on the
+    card at one full-width shape of phase 12c: its forward launches the
+    kernel once and equals the wrapper's output; its input gradients
+    equal ``torch.autograd.grad`` through the plain version on the same
+    card tensors, bit for bit (its backward is that plain version)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device)
+    gen.manual_seed(TRAIN_SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=f32).to(dtype)
+
+    B, S = TRAIN_SHAPE
+    cases = (
+        ("rmsnorm", "qwen3-1.7b hidden norm",
+         (randn(B * S, 2048), randn(2048)), {"eps": 1e-6}, ref.ref_rmsnorm),
+        ("flash_attention", "qwen3-1.7b attention",
+         tuple(randn(B, S, 16, 128) for _ in range(3)),
+         {"causal": True, "window": 0}, ref.ref_flash_attention),
+        ("grouped_matmul", "phi3.5-moe expert gate / up",
+         (randn(16, 640, 4096), randn(16, 4096, 6400)), {},
+         ref.ref_grouped_matmul),
+        ("ssd_scan", "mamba2-780m SSD",
+         (randn(B, S, 48, 64, dtype=f32),
+          F.softplus(randn(B, S, 48, dtype=f32)),
+          -torch.exp(randn(48, dtype=f32)), randn(B, S, 1, 128, dtype=f32),
+          randn(B, S, 1, 128, dtype=f32)), {"chunk": 256}, ref.ref_ssd_scan))
+    out = {}
+    for op, label, inputs, kw, plain in cases:
+        where = f"phase 12a {op}, {label}"
+        with torch.no_grad():
+            want_y = getattr(ops, op)(*inputs, **kw)
+        want_y = want_y[0] if isinstance(want_y, tuple) else want_y
+        xs = [t.detach().clone().requires_grad_() for t in inputs]
+        before = getattr(ops, op).launches
+        torch.cuda.synchronize()
+        with CallRecorder(ops) as calls:
+            y = getattr(ops, op)(*xs, **kw)
+        torch.cuda.synchronize()
+        launched = getattr(ops, op).launches - before
+        y = y[0] if isinstance(y, tuple) else y
+        check(launched == 1, f"{where}: the Function's forward launched "
+              f"{launched} kernels, want 1")
+        check("_PlainBackward" in type(y.grad_fn).__name__,
+              f"{where}: output's grad_fn is {y.grad_fn}")
+        check(torch.equal(y.detach(), want_y), f"{where}: the Function's "
+              f"forward differs from the wrapper's output")
+        unheld = calls.signatures - held
+        check(not unheld, f"{where}: kernel calls that phase 6 does not "
+              f"hold against the plain version: {sorted(unheld)}")
+        w = randn(*y.shape, dtype=f32)
+        grads = torch.autograd.grad((y.float() * w).sum(), xs)
+        ps = [t.detach().clone().requires_grad_() for t in inputs]
+        yp = plain(*ps, **kw)
+        yp = yp[0] if isinstance(yp, tuple) else yp
+        want = torch.autograd.grad((yp.float() * w).sum(), ps)
+        diffs = [float((g.float() - wg.float()).abs().max())
+                 for g, wg in zip(grads, want)]
+        check(all(g.dtype == wg.dtype and torch.equal(g, wg)
+                  for g, wg in zip(grads, want)),
+              f"{where}: gradients differ from the plain version's "
+              f"(max abs {diffs})")
+        out[op] = {"label": label, "launches": launched,
+                   "grad_max_abs_diff": diffs}
+        log(f"{where} ok: forward launched the kernel once, == the wrapper; "
+            f"{len(grads)} input gradients == autograd through the plain "
+            f"version (max abs diff {diffs}) [{card}]")
+        del xs, ps, y, yp, grads, want, want_y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_cli(torch, card: str, held: set) -> dict:
+    """Phase 12b: the train CLI (``launch.train.main``, ``--steps 3`` at
+    its default ``--batch 8 --seq 64``) on the card for each reduced arch
+    whose reference CLI runs, in this process under the call recorder:
+    its first line and every step's loss equal to the ``--device cpu``
+    run's (losses within ``TRAIN_LOSS_RTOL``), its launches three steps'
+    of ``train_launches``, every kernel call held in phase 6.  The
+    stub-frontend archs raise there as the reference CLI does."""
+    import shutil
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    ckdir = os.path.join(ROOT, "build", "phase12_cli_ckpt")
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        for arch in SERVE_ARCHS:
+            where = f"phase 12b train CLI {arch}"
+            argv = ["--arch", arch, *TRAIN_CLI_ARGS, "--ckpt-dir", ckdir]
+            cpu_text, cpu_rep = cli_run(train.main, argv + ["--device",
+                                                            "cpu"])
+            torch.cuda.synchronize()
+            zero_launches(ops)
+            with CallRecorder(ops) as calls:
+                card_text, rep = cli_run(train.main, argv)
+                torch.cuda.synchronize()
+            launches = read_launches(ops)
+            cfg = get_arch(arch).reduced
+            steps = int(TRAIN_CLI_ARGS[1])
+            want = {k: steps * v for k, v in train_launches(cfg).items()}
+            check(launches == want, f"{where}: launches {launches}, want "
+                  f"{want}")
+            check(card_text.split("\n")[0] == cpu_text.split("\n")[0],
+                  f"{where}: first lines differ:\n{card_text}\nvs\n"
+                  f"{cpu_text}")
+            got, exp = np.array(rep.losses), np.array(cpu_rep.losses)
+            check(got.shape == exp.shape == (steps,)
+                  and np.isfinite(got).all(), f"{where}: losses {got}")
+            rel = float(np.max(np.abs(got - exp) / np.abs(exp)))
+            check(rel <= TRAIN_LOSS_RTOL, f"{where}: card losses {got} vs "
+                  f"CPU {exp}: rel {rel:.3g} > {TRAIN_LOSS_RTOL}")
+            unheld = calls.signatures - held
+            check(not unheld, f"{where}: kernel calls that phase 6 does not "
+                  f"hold against the plain version: {sorted(unheld)}")
+            out[arch] = {"launches": launches, "loss_rel_err": rel,
+                         "losses": rep.losses,
+                         "same_text": card_text == cpu_text}
+            log(f"{where} ok: card == --device cpu (losses "
+                f"{[round(x, 6) for x in rep.losses]}, max rel err "
+                f"{rel:.3g}, limit {TRAIN_LOSS_RTOL}; output text "
+                f"{'equal' if card_text == cpu_text else 'differs in the last printed digit'}"
+                f"), launches {json.dumps(launches)}, "
+                f"{len(calls.signatures)} kernel signatures, each held "
+                f"[{card}]")
+        for arch in ("internvl2-76b", "musicgen-large"):
+            try:
+                cli_run(train.main, ["--arch", arch, "--steps", "1",
+                                     "--ckpt-dir", ckdir])
+            except ValueError as exc:
+                check("not enough values to unpack" in str(exc),
+                      f"phase 12b train CLI {arch}: raised {exc!r}")
+            else:
+                raise SmokeFailure(f"phase 12b train CLI {arch}: ran; the "
+                                   f"reference CLI raises there")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"phase 12b: {len(SERVE_ARCHS)} train CLIs on the card and on the "
+        f"CPU in {time.perf_counter() - t0:.2f} s; internvl2-76b and "
+        f"musicgen-large raise as the reference CLI does [{card}]")
+    return out
+
+
+class StepProbe:
+    """Wraps a train step: the wall ms of each call (synchronised before
+    and after), its kernel counts (zeroed just before, read just after),
+    the signatures of its kernel calls, and a profiled call when asked
+    (``profile_next``)."""
+
+    def __init__(self, torch, ops, step_fn, card: str):
+        self.torch, self.ops, self.step_fn = torch, ops, step_fn
+        self.card = card
+        self.ms, self.launches, self.signatures = [], [], set()
+        self.profile_next, self.profiled = None, None
+
+    def __call__(self, state, batch):
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        torch.cuda.synchronize()
+        zero_launches(self.ops)
+        label, self.profile_next = self.profile_next, None
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+                if label else None)
+        if prof is not None:
+            prof.start()
+        with CallRecorder(self.ops) as calls:
+            t0 = time.perf_counter()
+            out = self.step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+            stats = {}
+            kernels_us = profile_report(label, prof, 1e6 * wall, self.card,
+                                        stats)
+            busy = sum(kernels_us.values())
+            stats["kernel_share"] = {
+                name: (sum(us for k, us in kernels_us.items() if prefix in k)
+                       / busy if busy > 0 else None)
+                for name, prefix in KERNEL_PREFIX.items()}
+            self.profiled = stats
+        else:
+            self.ms.append(1e3 * wall)
+        self.launches.append(read_launches(self.ops))
+        self.signatures |= calls.signatures
+        return out
+
+
+class SaveClock:
+    """An ``AsyncCheckpointer`` with the seconds of its saves: the host
+    copy (``save``) and the serialisation (the ``wait`` that follows)."""
+
+    def __init__(self, ck):
+        self.ck, self.copy_s, self.write_s = ck, 0.0, 0.0
+
+    def save(self, *args, **kw):
+        t0 = time.perf_counter()
+        self.ck.save(*args, **kw)
+        self.copy_s += time.perf_counter() - t0
+
+    def wait(self):
+        t0 = time.perf_counter()
+        self.ck.wait()
+        self.write_s += time.perf_counter() - t0
+
+
+def train_full_width(torch, device, card: str, held: set, label: str,
+                     module: str, layers: int, steps: int,
+                     main_path: bool) -> dict:
+    """Phase 12c for one config at full width, ``layers`` deep, bf16,
+    its own remat, B x S = ``TRAIN_SHAPE`` from ``SyntheticLMDataset``:
+    ``Trainer.run`` for ``steps`` steps with its final checkpoint (every
+    parameter's gradient non-zero on step 1; launches a step
+    ``train_launches``; every kernel call held in phase 6), then
+    ``maybe_resume`` into a fresh state, equal to the trained one bit for
+    bit.  On the main path, ``TRAIN_MORE_STEPS`` more steps from the
+    resumed state and from the trained one in memory, under
+    ``torch.use_deterministic_algorithms(True)``, equal bit for bit in
+    losses and state; one of them profiled.  Otherwise one more step,
+    profiled, from the resumed state."""
+    import math
+    import shutil
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.data import SyntheticLMDataset, make_train_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.adamw import Optimizer
+    from repro_torch.train import make_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer
+    cfg = arch_config(module, n_layers=layers)
+    where = f"phase 12c {label} ({layers} layers)"
+    B, S = TRAIN_SHAPE
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=S,
+                            global_batch=B, seed=TRAIN_SEED)
+    opt = make_optimizer()
+    zero_grads = []
+
+    def update(grads, state, params):
+        if not zero_grads:       # step 1: every leaf reached, none zero
+            zero_grads.append([p for p, g in _flatten_with_paths(grads)
+                               if not bool(torch.count_nonzero(g))])
+        return opt.update(grads, state, params)
+
+    step_fn, _ = make_train_step(cfg, Optimizer(opt.init, update))
+    probe = StepProbe(torch, ops, step_fn, card)
+    ckdir = os.path.join(ROOT, "build", f"phase12_{module}_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    res = {"config": cfg.name, "layers": layers, "of_layers":
+           arch_config(module).n_layers, "batch": B, "seq": S}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, probe, ckdir, checkpoint_every=50)
+        trainer.ckpt = clock = SaveClock(AsyncCheckpointer(ckdir))
+        t0 = time.perf_counter()
+        # no reference to the initial state outlives its first step
+        trained, rep = trainer.run(
+            make_train_state(cfg, TRAIN_SEED, opt, device=device),
+            make_train_iterator(ds, device=device), steps)
+        run_s = time.perf_counter() - t0
+        res["peak_train_bytes"] = torch.cuda.max_memory_allocated()
+        check(rep.steps_done == steps and not rep.preempted,
+              f"{where}: {rep}")
+        check(zero_grads == [[]], f"{where}: leaves with no gradient on "
+              f"step 1 (a detached kernel?): {zero_grads}")
+        check(np.isfinite(rep.losses).all(), f"{where}: losses {rep.losses}")
+        ln_v = math.log(cfg.vocab_size)
+        check(0.8 * ln_v <= rep.losses[0] <= 1.2 * ln_v, f"{where}: first "
+              f"loss {rep.losses[0]:.4f}, not near ln V = {ln_v:.4f}")
+        want = train_launches(cfg)
+        check(all(n == want for n in probe.launches), f"{where}: launches "
+              f"a step {probe.launches}, want {want}")
+        unheld = probe.signatures - held
+        check(not unheld, f"{where}: kernel calls that phase 6 does not "
+              f"hold against the plain version: {sorted(unheld)}")
+        res.update(losses=rep.losses, launches_a_step=want,
+                   launches_run={k: steps * v for k, v in want.items()},
+                   step_ms=probe.ms, run_s=run_s,
+                   save_copy_s=clock.copy_s, save_write_s=clock.write_s)
+
+        fresh = make_train_state(cfg, TRAIN_SEED + 1, opt, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed, start = trainer.maybe_resume(fresh, device=device)
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t0
+        del fresh
+        check(start == steps, f"{where}: resumed at step {start}")
+        res["leaves"] = same_tree(resumed, trained,
+                                  f"{where}: resumed vs trained state")
+        if main_path:
+            def more_steps(st, profile):
+                it = make_train_iterator(ds, start_step=start, device=device)
+                losses = []
+                for i in range(TRAIN_MORE_STEPS):
+                    if profile and i == 0:
+                        probe.profile_next = f"{label} train step"
+                    st, m = probe(st, next(it))
+                    losses.append(float(m["loss"]))
+                return st, losses
+
+            torch.use_deterministic_algorithms(True)
+            try:
+                st_r, loss_r = more_steps(resumed, True)
+                del resumed
+                st_s, loss_s = more_steps(trained, False)
+                del trained
+            finally:
+                torch.use_deterministic_algorithms(False)
+            check(loss_r == loss_s, f"{where}: losses after the resume "
+                  f"{loss_r} vs straight {loss_s}")
+            same_tree(st_r, st_s, f"{where}: {TRAIN_MORE_STEPS} steps after "
+                      f"the resume vs straight")
+            res["more_losses"] = loss_r
+            del st_r, st_s
+        else:
+            del trained
+            probe.profile_next = f"{label} train step"
+            probe(resumed, next(make_train_iterator(ds, start_step=start,
+                                                    device=device)))
+            del resumed
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["idle_share"] = probe.profiled.get("idle_share")
+        res["kernel_share"] = probe.profiled["kernel_share"]
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    timed = probe.ms[1:steps] or probe.ms[:1]   # past the first step
+    res["ms"] = float(np.mean(timed))
+    res["tokens_per_s"] = B * S / (res["ms"] / 1e3)
+    log(f"{where}" + (f" [depth cut: {layers} of {res['of_layers']} "
+                      f"layers]" if layers < res["of_layers"] else "")
+        + f" ok: {steps} Trainer steps, losses "
+        f"{[round(x, 5) for x in rep.losses]}; every one of "
+        f"{res['leaves']} leaves' gradients non-zero on step 1; resumed "
+        f"state == trained bit for bit"
+        + (f"; {TRAIN_MORE_STEPS} steps after the resume == straight bit "
+           f"for bit (losses {res['more_losses']}, deterministic mode)"
+           if main_path else "")
+        + f"; {res['ms']:.2f} ms a step (steps {[round(x, 2) for x in probe.ms]}"
+        f" ms), {res['tokens_per_s']:.1f} tokens/s, peak "
+        f"{res['peak_train_bytes'] / 2 ** 30:.3f} GiB over the Trainer run "
+        f"({res['peak_bytes'] / 2 ** 30:.3f} GiB over the phase), launches "
+        f"a step "
+        f"{json.dumps(want)}, idle share {res['idle_share']}, kernel share "
+        f"{json.dumps(res['kernel_share'])}, checkpoint save "
+        f"{res['save_copy_s']:.2f} s host copy + {res['save_write_s']:.2f} s "
+        f"write, load {res['load_s']:.2f} s [{card}]")
+    return res
+
+
+def system_story(torch, device, ckdir: str) -> dict:
+    """``tests/test_system.py``'s story on ``device``: a critical serving
+    engine beside a preemptible trainer; the orchestrator's eviction hook
+    preempts the trainer and enters failover; requests served through the
+    failover; the trainer resumed from its checkpoint for 3 steps;
+    failback.  Returns its verdicts and the trainer's losses."""
+    from repro_torch.core.capacity import RegionCapacity
+    from repro_torch.core.drills import remediate
+    from repro_torch.core.omg import Orchestrator
+    from repro_torch.core.service import synthesize_fleet, unsafe_edges
+    from repro_torch.core.tiers import Tier
+    from repro_torch.data import SyntheticLMDataset, make_train_iterator
+    from repro_torch.models import LMConfig, init_params
+    from repro_torch.serving import Request, ServingEngine, TieredScheduler
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.train.trainer import Trainer
+    cfg = LMConfig(name="sys", n_layers=2, d_model=64, n_heads=4,
+                   n_kv_heads=2, d_head=16, d_ff=128, vocab_size=128,
+                   tie_embeddings=True)
+    fleet = synthesize_fleet(scale=0.02, seed=4)
+    remediate(fleet, set(unsafe_edges(fleet)))
+    region = RegionCapacity.for_fleet("r", fleet)
+    step_fn, opt = make_train_step(cfg, n_loss_chunks=2)
+
+    def state(seed):
+        """Weights drawn on the CPU (a generator on the card draws other
+        numbers), moved to ``device``: card and CPU runs hold the same."""
+        p = to_device(init_params(cfg, seed, device="cpu"), device)
+        return TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=device))
+
+    engine = ServingEngine(cfg, state(TRAIN_SEED).params, max_batch=4,
+                           max_seq=48)
+    sched = TieredScheduler({"e": engine})
+    ds = SyntheticLMDataset(vocab_size=128, seq_len=16, global_batch=4,
+                            seed=1)
+    events = {"evicted": 0, "restored": 0}
+    trainer = Trainer(cfg, step_fn, ckdir, checkpoint_every=2)
+    tstate, rep0 = trainer.run(state(TRAIN_SEED), make_train_iterator(
+        ds, device=device), 4)
+
+    def on_evict(spec):
+        events["evicted"] += 1
+        if events["evicted"] == 1:
+            trainer.request_preempt()
+            sched.enter_failover()
+
+    def on_restore(spec):
+        events["restored"] += 1
+
+    orch = Orchestrator(fleet, region, scale=0.02, on_evict=on_evict,
+                        on_restore=on_restore)
+    report = orch.failover(tv_failover=1.0)
+    rng = np.random.default_rng(0)
+    for i in range(12):
+        sched.submit(Request(i, tier=Tier(i % 6),
+                             prompt=list(rng.integers(0, 128, 8)),
+                             max_new_tokens=2))
+    for _ in range(40):
+        sched.tick()
+    v = {"mode": report.mode, "always_on_ok": bool(report.always_on_ok),
+         "rl_rto_met": bool(report.rl_rto_met), **events,
+         "t1_availability": engine.availability(Tier.T1),
+         "served": {t.name: engine.counters["served"][t] for t in Tier},
+         "rejected": {t.name: engine.counters["rejected"][t] for t in Tier},
+         "tokens_decoded": engine.tokens_decoded,
+         "steps_before": rep0.steps_done}
+    sched.exit_failover()
+    t2, start = trainer.maybe_resume(state(TRAIN_SEED + 7), device=device)
+    v["resumed_at"] = start
+    v["resumed_embed_equal"] = bool(torch.equal(t2.params["embed"],
+                                                tstate.params["embed"]))
+    trainer._preempt_requested = False
+    t2, rep2 = trainer.run(t2, make_train_iterator(ds, start_step=start,
+                                                   device=device),
+                           3, start_step=start)
+    v["steps_after"] = rep2.steps_done
+    orch.failback()
+    v["all_steady"] = all(s.placement == "steady" for s in orch.se.values())
+    return {"verdicts": v, "losses": rep0.losses + rep2.losses}
+
+
+def phase_system(torch, device, card: str, held: set) -> dict:
+    """Phase 12d: the paper's story (``system_story``) on the card, its
+    kernels counted and every call held in phase 6, with the reference
+    test's contracts, its verdicts equal to the same run on the CPU and
+    the trainer's losses within ``TRAIN_LOSS_RTOL``."""
+    import shutil
+    from repro_torch.core.tiers import Tier
+    from repro_torch.kernels import ops
+    base = os.path.join(ROOT, "build", "phase12_story")
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        cpu = system_story(torch, "cpu", os.path.join(base, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        zero_launches(ops)
+        t0 = time.perf_counter()
+        with CallRecorder(ops) as calls:
+            card_run = system_story(torch, device,
+                                    os.path.join(base, "card"))
+            torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = read_launches(ops)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    v = card_run["verdicts"]
+    where = "phase 12d system story"
+    check(v["mode"] == "peak" and v["always_on_ok"] and v["rl_rto_met"]
+          and v["evicted"] > 0 and v["restored"] > 0
+          and v["t1_availability"] == 1.0 and v["served"][Tier.T5.name] == 0
+          and v["resumed_at"] >= 4 and v["resumed_embed_equal"]
+          and v["steps_after"] == 3 and v["all_steady"],
+          f"{where}: the reference test's contracts fail on the card: {v}")
+    check(v == cpu["verdicts"], f"{where}: card verdicts {v} vs CPU "
+          f"{cpu['verdicts']}")
+    got, exp = np.array(card_run["losses"]), np.array(cpu["losses"])
+    rel = float(np.max(np.abs(got - exp) / np.abs(exp)))
+    check(got.shape == exp.shape and rel <= TRAIN_LOSS_RTOL,
+          f"{where}: card losses {got} vs CPU {exp} (rel {rel:.3g})")
+    check(launches["rmsnorm"] > 0 and launches["flash_attention"] > 0
+          and launches["decode_attention"] > 0, f"{where}: launches "
+          f"{launches}")
+    unheld = calls.signatures - held
+    check(not unheld, f"{where}: kernel calls that phase 6 does not hold "
+          f"against the plain version: {sorted(unheld)}")
+    log(f"{where} ok: card verdicts == CPU's ({json.dumps(v)}), losses "
+        f"within {rel:.3g} (limit {TRAIN_LOSS_RTOL}), launches "
+        f"{json.dumps(launches)}, {len(calls.signatures)} kernel "
+        f"signatures, each held; card {card_s:.2f} s, CPU {cpu_s:.2f} s "
+        f"[{card}]")
+    return {"verdicts": v, "launches": launches, "loss_rel_err": rel,
+            "card_s": card_s}
+
+
+def phase_training(torch, device, card: str, held: set) -> dict:
+    """Phase 12: the training path on the card, weights and inputs from
+    seed 28: (a) the kernels' autograd wiring, (b) the train CLI card ==
+    CPU for the reduced archs, (c) qwen3-1.7b (the main path),
+    mamba2-780m and phi3.5-moe at full width through ``Trainer`` with
+    checkpoint and resume, (d) the paper's preempt-and-restore story."""
+    log(f"phase 12: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+        f"allocated on the card by the earlier phases")
+    seconds = {}
+    t0 = time.perf_counter()
+    out = {"autograd": phase_autograd(torch, device, card, held)}
+    seconds["autograd"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cli"] = phase_train_cli(torch, card, held)
+    seconds["cli"] = time.perf_counter() - t0
+    out["full"] = {}
+    for i, (label, module, layers, steps) in enumerate(TRAIN_FULL):
+        t0 = time.perf_counter()
+        out["full"][label] = train_full_width(torch, device, card, held,
+                                              label, module, layers, steps,
+                                              main_path=i == 0)
+        seconds[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["system"] = phase_system(torch, device, card, held)
+    seconds["system"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    log(f"phase 12 seconds by part: {json.dumps(seconds)}")
     return out
 
 
@@ -3739,6 +4441,37 @@ def main() -> int:
         by_name[name]["launches"] = served["served"]["launches"][name]
     by_name["grouped_matmul"]["launches"] = \
         served["cli"]["phi3.5-moe-42b-a6.6b"]["launches"]["grouped_matmul"]
+
+    # phase 12: the training path (autograd through B4, B6, B7, B8, the
+    # train CLI, qwen3-1.7b / mamba2-780m / phi3.5-moe at full width, the
+    # paper's story), B4, B5, B6, B7 and B8 counted
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trained = phase_training(torch, device, card,
+                             set().union(*(e["held"] for e in k_model)))
+    log(f"phase 12 ok: {time.perf_counter() - t0:.2f} s, " + json.dumps(
+        {label: {k: r[k] for k in ("ms", "tokens_per_s", "peak_train_bytes",
+                                   "idle_share", "save_write_s", "load_s",
+                                   "launches_a_step")}
+         for label, r in trained["full"].items()}) + f" [{card}]")
+    main_train = {"rmsnorm": "qwen3-1.7b", "flash_attention": "qwen3-1.7b",
+                  "grouped_matmul": "phi3.5-moe", "ssd_scan": "mamba2-780m"}
+    for name, newest in main_train.items():
+        paths = by_name[name]["launches_by_path"]
+        for label, row in trained["full"].items():
+            if row["launches_run"][name]:
+                paths[f"{label} train, {row['layers']} layers, Trainer run "
+                      f"(phase 12c)"] = row["launches_run"][name]
+        for arch, row in trained["cli"].items():
+            if row["launches"][name]:
+                paths[f"train CLI {arch} (phase 12b)"] = row["launches"][name]
+        paths["system story (phase 12d)"] = \
+            trained["system"]["launches"][name]
+        by_name[name]["launches"] = \
+            trained["full"][newest]["launches_run"][name]
+    by_name["decode_attention"]["launches_by_path"][
+        "system story (phase 12d)"] = \
+        trained["system"]["launches"]["decode_attention"]
 
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",

@@ -59,6 +59,12 @@
 // K and V tiles widened to float32 in shared memory; per key tile
 // S = Q K^T with 4 x 4 scores a thread, the online softmax with four
 // threads a row, then acc += P V with 4 rows x d/16 columns a thread.
+// Below d 16 (the reduced configs' d 8) sixteen threads of a row group
+// cannot each own a column: 16 / d threads share one, each summing every
+// (16 / d)-th key of the tile into its own accumulator (all rescaled by
+// the same alpha), and the epilogue adds the slices with __shfl_xor_sync
+// inside the warp before one of them stores the row.  d 8 and 16 are
+// float32 only: the bf16 kernel's k16 fragments need d >= 32.
 //
 // Next (a later B6 step): wgmma on a warpgroup with K and V brought by
 // TMA into an mbarrier ring, P fed to wgmma from registers, a producer
@@ -125,7 +131,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sm.m[tid] = NEG_INF;
     sm.l[tid] = 0.f;
   }
-  constexpr int CW = DH / 16;  // accumulator columns a thread
+  // accumulator columns a thread, and key slices a column (d < 16)
+  constexpr int CW = DH >= 16 ? DH / 16 : 1;
+  constexpr int KS = DH >= 16 ? 1 : 16 / DH;
+  const int col = DH >= 16 ? tx : tx % DH;  // column of acc[.][0]
+  const int slice = DH >= 16 ? 0 : tx / DH;
   float acc[4][CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -200,7 +210,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // acc = acc * alpha + P V: rows ty + 16 i, columns tx + 16 j
+    // acc = acc * alpha + P V: rows ty + 16 i, columns col + 16 j, keys
+    // slice + KS t
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float alpha = sm.a[ty + 16 * i];
@@ -208,12 +219,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CW; ++j) acc[i][j] *= alpha;
     }
 #pragma unroll 4
-    for (int c = 0; c < BKT; ++c) {
+    for (int c = slice; c < BKT; c += KS) {
       float p[4], vv[CW];
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = sm.s[ty + 16 * i][c];
 #pragma unroll
-      for (int j = 0; j < CW; ++j) vv[j] = sm.v[c][tx + 16 * j];
+      for (int j = 0; j < CW; ++j) vv[j] = sm.v[c][col + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -221,6 +232,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
+  // the key slices of a column sit on lanes col + d s of one half-warp
+  if constexpr (KS > 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int off = DH; off < 16; off <<= 1)
+        acc[i][0] += __shfl_xor_sync(0xffffffffu, acc[i][0], off);
+  }
+  if (slice != 0) return;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -229,7 +249,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = op + (long long)(q0 + r) * st.v[10];
 #pragma unroll
     for (int j = 0; j < CW; ++j)
-      orow[tx + 16 * j] = from_f<T>(acc[i][j] / denom);
+      orow[col + 16 * j] = from_f<T>(acc[i][j] / denom);
   }
 }
 
@@ -502,7 +522,8 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q, k, v, o: (B, S, H, dh) with unit stride on dh; strides: a host
 // array of 12 int64, the {batch, seq, head} element strides of q, k, v and
-// o in that order.  dh in {32, 64, 128, 256}.
+// o in that order.  dh in {8, 16, 32, 64, 128, 256} for float32 and in
+// {32, 64, 128, 256} for bf16.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int B, int S,
@@ -518,6 +539,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                  window, scale, st)
   if (dt == DT_F32) {
     switch (dh) {
+      case 8: FA_CASE(float, 8, 64);
+      case 16: FA_CASE(float, 16, 64);
       case 32: FA_CASE(float, 32, 64);
       case 64: FA_CASE(float, 64, 64);
       case 128: FA_CASE(float, 128, 64);

@@ -5,7 +5,8 @@ caller names another device.  There is no environment switch and no
 quiet fallback: asking for CUDA on a host without it raises, and the
 CPU runs only when the caller asks for it (the CPU tests do).  On the
 CPU each kernel wrapper takes its plain PyTorch version; on the card it
-launches its kernel.
+launches its kernel.  ``with_plain_grad`` gives every model kernel its
+gradient.
 """
 
 from __future__ import annotations
@@ -94,3 +95,51 @@ def launch(who: str, fn, *args, device: torch.device) -> None:
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{who} kernel launch failed: cudaError {rc}")
+
+
+class _PlainBackward(torch.autograd.Function):
+    """A kernel wrapper's forward with its plain version's gradient.
+
+    ``forward`` runs the wrapper's body (the kernel for CUDA tensors, the
+    plain version for CPU ones) and saves the inputs; ``backward``
+    recomputes the plain version from them under ``enable_grad`` and
+    returns ``torch.autograd.grad`` of it.  The reference has no backward
+    kernel either (no ``custom_vjp``, no backward ``pallas_call``): its
+    training differentiates its ``jnp`` layers.  Outputs at the indices
+    ``nondiff`` are marked non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, body, plain, kwargs, nondiff, *inputs):
+        ctx.plain, ctx.kwargs, ctx.nondiff = plain, kwargs, nondiff
+        ctx.save_for_backward(*inputs)
+        out = body(*inputs, **kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        for i in nondiff:
+            ctx.mark_non_differentiable(outs[i])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[4:]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n)
+                  for x, n in zip(ctx.saved_tensors, need)]
+            out = ctx.plain(*xs, **ctx.kwargs)
+        outs = out if isinstance(out, tuple) else (out,)
+        keep = [i for i, o in enumerate(outs)
+                if i not in ctx.nondiff and o.requires_grad]
+        got = iter(torch.autograd.grad(
+            [outs[i] for i in keep], [x for x, n in zip(xs, need) if n],
+            [grads[i] for i in keep], allow_unused=True))
+        return (None,) * 4 + tuple(next(got) if n else None for n in need)
+
+
+def with_plain_grad(body, plain, inputs, kwargs, nondiff=()):
+    """``body(*inputs, **kwargs)``, through ``_PlainBackward`` when
+    autograd records and an input requires grad (on either device, so
+    the CPU tests run its backward too); called directly otherwise, as
+    under ``torch.no_grad()`` in serving and decode."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _PlainBackward.apply(body, plain, kwargs, tuple(nondiff),
+                                    *inputs)
+    return body(*inputs, **kwargs)

@@ -7,9 +7,12 @@ q, k, v in the model layout ``(B, S, H, d)`` with KV already repeated to
 H heads, read through their strides (no transposed copies); online
 softmax in float32; causal and sliding-window masks, with key tiles that
 the mask covers wholly skipped.  The kernel (``csrc/flash_attention.cu``)
-says what bounds it and how its design answers that.
-``flash_attention`` launches it for CUDA tensors and takes
-``ref.ref_flash_attention`` for CPU tensors.
+says what bounds it and how its design answers that.  Two routes by
+dtype (``flash_attention_route``): ``"mma"`` for bfloat16 (``mma.sync``,
+d 32-256) and ``"fma"`` for float32 (scalar IEEE FMAs, also d 8 and 16,
+the reduced configs' heads).  ``flash_attention`` launches the kernel
+for CUDA tensors and takes ``ref.ref_flash_attention`` for CPU tensors;
+its gradient is the plain version's (``backend.with_plain_grad``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import torch
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_flash_attention
 
-HEAD_DIMS = (32, 64, 128, 256)
+# head dims each route's kernel is instantiated for: the bf16 kernel's
+# k16 fragments of Q K^T need d >= 32
+HEAD_DIMS = {"mma": (32, 64, 128, 256), "fma": (8, 16, 32, 64, 128, 256)}
 
 
 def _lib():
@@ -33,6 +38,12 @@ def _lib():
                        i, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def flash_attention_route(q: torch.Tensor, *_) -> str:
+    """The kernel a CUDA call takes: ``"mma"`` for bfloat16, ``"fma"``
+    for float32."""
+    return "mma" if q.dtype == torch.bfloat16 else "fma"
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,9 +57,10 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, S, H, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes d in "
-                         f"{HEAD_DIMS}, got {d}")
+    route = flash_attention_route(q)
+    if d not in HEAD_DIMS[route]:
+        raise ValueError(f"flash_attention: the {route} route ({q.dtype}) "
+                         f"takes d in {HEAD_DIMS[route]}, got {d}")
     if not all(backend.rows_aligned(t) for t in (q, k, v)):
         raise ValueError("flash_attention: every row of q, k, v must be "
                          "unit-strided and 16-byte aligned")
@@ -63,7 +75,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q, k, v (B, S, H, d), float32 or bfloat16, one dtype; ``window`` 0
     = global, > 0 = keys with ``q_pos - k_pos < window``.  Returns
     (B, S, H, d) in q's dtype.  CUDA tensors launch the kernel (counted in
-    ``flash_attention.launches``); CPU tensors take the plain version."""
+    ``flash_attention.launches``); CPU tensors take the plain version.
+    Differentiable in q, k and v, by the plain version's gradient."""
+    return backend.with_plain_grad(
+        _flash_attention, ref_flash_attention, (q, k, v),
+        {"causal": causal, "window": window})
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, window: int) -> torch.Tensor:
     if backend.kernel_route("flash_attention", q, k, v) == "cpu":
         return ref_flash_attention(q, k, v, causal=causal, window=window)
     window = int(window)

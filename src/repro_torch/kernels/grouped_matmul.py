@@ -18,7 +18,8 @@ holds three kernels, one per route, and says what bounds each:
 ``grouped_matmul_route`` picks the route from dtype, shape and alignment
 alone; nothing falls back when a build or launch fails.  ``grouped_matmul``
 launches the route's kernel for CUDA tensors and takes
-``ref.ref_grouped_matmul`` for CPU tensors.
+``ref.ref_grouped_matmul`` for CPU tensors; its gradient is the plain
+version's (``backend.with_plain_grad``).
 """
 
 from __future__ import annotations
@@ -64,7 +65,13 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D), w (E, D, F), contiguous, both float32 or both
     bfloat16.  CUDA tensors launch the kernel of
     ``grouped_matmul_route(x, w)`` (counted in
-    ``grouped_matmul.launches``); CPU tensors take the plain version."""
+    ``grouped_matmul.launches``); CPU tensors take the plain version.
+    Differentiable in x and w, by the plain version's gradient."""
+    return backend.with_plain_grad(_grouped_matmul, ref_grouped_matmul,
+                                   (x, w), {})
+
+
+def _grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if backend.kernel_route("grouped_matmul", x, w) == "cpu":
         return ref_grouped_matmul(x, w)
     backend.kernel_dtype("grouped_matmul", x, w)

@@ -103,7 +103,10 @@ def ref_ssd_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cs = torch.cumsum(da_h, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]
     tril = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    L_mat = torch.where(tril, torch.exp(diff), 0.0)
+    # masked before the exp, as the model's segsum does: above the
+    # diagonal diff grows with the decay and its exp overflows, and
+    # where(tril, exp(diff), 0) would give 0 * inf = NaN gradients
+    L_mat = torch.exp(torch.where(tril, diff, -math.inf))
     y = torch.einsum("bihn,bjhn,bhij,bjhp->bihp",
                      c.float(), b.float(), L_mat, x32)
     if init_state is not None:

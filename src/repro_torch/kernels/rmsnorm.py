@@ -5,7 +5,8 @@ Replaces ``repro/kernels/rmsnorm.py::rmsnorm`` (Pallas
 the last axis in float32, stored in x's dtype.  The kernel
 (``csrc/rmsnorm.cu``) says what bounds it and how its design answers
 that.  ``rmsnorm`` launches it for CUDA tensors and takes
-``ref.ref_rmsnorm`` for CPU tensors.
+``ref.ref_rmsnorm`` for CPU tensors; its gradient is the plain
+version's (``backend.with_plain_grad``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x (..., D) contiguous, scale (D,); float32 or bfloat16 each.
     CUDA tensors launch the kernel (counted in ``rmsnorm.launches``); CPU
-    tensors take the plain version."""
+    tensors take the plain version.  Differentiable in x and scale, by
+    the plain version's gradient."""
+    return backend.with_plain_grad(_rmsnorm, ref_rmsnorm, (x, scale),
+                                   {"eps": eps})
+
+
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
     if backend.kernel_route("rmsnorm", x, scale) == "cpu":
         return ref_rmsnorm(x, scale, eps)
     x_dt = backend.kernel_dtype("rmsnorm", x)

@@ -15,7 +15,9 @@ TF32 products for each float32 one).  One route, ``"mma"``
 (``ssd_scan_route``), for every shape the kernel takes: a ragged P, N or
 chunk runs in zero-padded tiles.  ``ssd_scan`` launches it for CUDA
 tensors and takes ``ref.ref_ssd_scan`` for CPU tensors; nothing falls
-back when a build or launch fails.
+back when a build or launch fails.  Its gradient is the plain version's
+(``backend.with_plain_grad``), through y only: the final state is
+marked non-differentiable (the model reads only y).
 """
 
 from __future__ import annotations
@@ -94,8 +96,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (y (B, S, H, P) in x's dtype, final state (B, H, P, N) float32).
     x, b and c share float32 or bfloat16; dt is float32 or bfloat16; a is
     float32.  ``S % chunk == 0``.  CUDA tensors launch the kernel (counted
-    in ``ssd_scan.launches``); CPU tensors take the plain version."""
+    in ``ssd_scan.launches``); CPU tensors take the plain version.  y is
+    differentiable in x, dt, a, b and c, by the plain version's gradient;
+    the state is not differentiable."""
     _check(x, dt, a, b, c, chunk)
+    return backend.with_plain_grad(_ssd_scan, ref_ssd_scan, (x, dt, a, b, c),
+                                   {"chunk": chunk}, nondiff=(1,))
+
+
+def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor, c: torch.Tensor,
+              chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if backend.kernel_route("ssd_scan", x, dt, a, b, c) == "cpu":
         return ref_ssd_scan(x, dt, a, b, c, chunk)
     x_dt, dt_dt = _codes(x, dt, a, b, c)

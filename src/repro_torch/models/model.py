@@ -5,7 +5,13 @@ MoE / SSM (Mamba-2) / hybrid (Hymba) decoder stacks; modality frontends
 (audio frames, vision patches) are stubs, ``embed_inputs=False`` configs
 taking precomputed ``(B, S, d_model)`` embeddings.  The layer stack is a
 Python loop over the stacked leading axis of the params (the reference's
-``lax.scan``), with no remat: it matters only for training.  Entry points
+``lax.scan``).  When autograd records (training), ``cfg.remat`` applies
+to each layer as the reference's ``jax.checkpoint`` policies do:
+``"full"`` saves nothing inside a layer (``torch.utils.checkpoint``,
+non-reentrant: ``nothing_saveable``), ``"dots"`` saves the outputs of the
+plain matrix products (selective checkpointing:
+``checkpoint_dots_with_no_batch_dims``); under ``torch.no_grad()``
+(serving, decode) the layers run plainly.  Entry points
 that make tensors (``init_params``, ``init_decode_state``) take
 ``device=`` and run on the CUDA card unless the caller names the CPU;
 ``init_abstract`` builds the tree on the ``meta`` device.
@@ -15,9 +21,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
@@ -260,6 +268,17 @@ def _layer(params: Params, i: int) -> Params:
             for k, v in params.items()}
 
 
+def _unstack(params: Params, n: int) -> list:
+    """Every layer's parameters, views into the stacked tree from one
+    ``torch.unbind`` a leaf.  Its backward stacks the layers' gradients
+    once; indexing each layer (``_layer``) would scatter each layer's
+    gradient into a zeroed copy of the whole stack and sum n of them."""
+    if isinstance(params, dict):
+        parts = {k: _unstack(v, n) for k, v in params.items()}
+        return [{k: parts[k][i] for k in params} for i in range(n)]
+    return list(torch.unbind(params))
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
@@ -314,6 +333,28 @@ def _layer_forward(lp: Params, h: torch.Tensor, cfg: LMConfig, window: int,
     return h, aux
 
 
+def _save_plain_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of matrix products without
+    a batch dimension (``aten.mm``; ``torch.matmul`` of a (B, S, D)
+    activation by a weight reaches it), recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(policy: str, fn, *args):
+    """``fn(*args)`` under the remat ``policy`` of the config."""
+    if policy == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts,
+                _save_plain_products))
+    raise ValueError(f"remat {policy!r}: 'none', 'full' or 'dots'")
+
+
 def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
     """Per-expert token capacity for a global token count (static)."""
     if not cfg.is_moe:
@@ -351,10 +392,13 @@ def forward(params: Params, cfg: LMConfig, inputs: torch.Tensor,
     windows = cfg.layer_windows().tolist()
     thetas = cfg.layer_thetas().tolist()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    layers = _unstack(params["layers"], cfg.n_layers)
     for i in range(cfg.n_layers):
-        h, aux_l = _layer_forward(_layer(params["layers"], i), h, cfg,
-                                  windows[i], thetas[i], moe_parallel,
-                                  capacity)
+        args = (layers[i], h, cfg, windows[i], thetas[i], moe_parallel,
+                capacity)
+        h, aux_l = (_remat(cfg.remat, _layer_forward, *args) if remat
+                    else _layer_forward(*args))
         if aux_l is not None:
             aux = aux + aux_l
     h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)

@@ -1,6 +1,6 @@
 """Optimizers: AdamW over trees of tensors and the differentiable
-capacity optimizer over the fused sweep engine (port of ``repro.optim``;
-``compression`` comes with the rest of the model stack)."""
+capacity optimizer over the fused sweep engine, and int8 gradient
+compression (port of ``repro.optim``)."""
 
 from repro_torch.optim.adamw import (  # noqa: F401
     AdamWState,
@@ -9,6 +9,11 @@ from repro_torch.optim.adamw import (  # noqa: F401
     clip_by_global_norm,
     cosine_schedule,
     make_optimizer,
+)
+from repro_torch.optim.compression import (  # noqa: F401
+    compressed_psum_grads,
+    dequantize_int8,
+    quantize_int8,
 )
 from repro_torch.optim.capacity import (  # noqa: F401
     CapacityOptResult,

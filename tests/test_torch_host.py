@@ -33,6 +33,13 @@ from repro_torch import chaos  # noqa: E402
 from repro_torch.core import overcommit_sim  # noqa: E402
 from repro_torch.obs import slo  # noqa: E402
 from repro_torch.optim import capacity  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint  # noqa: E402
+from repro_torch.data import SyntheticLMDataset, make_train_iterator  # noqa: E402
+from repro_torch.models import LMConfig  # noqa: E402
+from repro_torch.train import make_train_state  # noqa: E402
+
+_TINY = LMConfig(name="tiny", n_layers=1, d_model=8, n_heads=1, n_kv_heads=1,
+                 d_head=8, d_ff=8, vocab_size=8)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -156,7 +163,12 @@ def test_import_boundary_subprocess():
             "repro_torch.serving", "repro_torch.serving.engine",
             "repro_torch.serving.scheduler", "repro_torch.serving.failover",
             "repro_torch.serving.workload", "repro_torch.launch",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve",
+            "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+            "repro_torch.train", "repro_torch.train.train_step",
+            "repro_torch.train.trainer", "repro_torch.launch.train",
+            "repro_torch.optim.compression"} <= set(mods)
 
 
 def test_import_boundary_source_grep():
@@ -181,7 +193,11 @@ def test_import_boundary_source_grep():
         "optim/__init__.py", "optim/adamw.py", "optim/capacity.py",
         "core/overcommit_sim.py", "serving/__init__.py", "serving/engine.py",
         "serving/scheduler.py", "serving/failover.py", "serving/workload.py",
-        "launch/__init__.py", "launch/serve.py")} <= set(files)
+        "launch/__init__.py", "launch/serve.py", "data/__init__.py",
+        "data/pipeline.py", "checkpoint/__init__.py",
+        "checkpoint/checkpoint.py", "train/__init__.py",
+        "train/train_step.py", "train/trainer.py", "launch/train.py",
+        "optim/compression.py")} <= set(files)
     # the pattern sees an import inside a function
     assert pat.search("def sync(tree):\n    import jax\n")
 
@@ -215,7 +231,11 @@ def test_device_default_is_cuda_and_never_falls_back(monkeypatch):
                  lambda: capacity.optimize_capacity(fs, mode="grad"),
                  lambda: capacity.hardening_weights(fs, None),
                  lambda: capacity.make_knobs(),
-                 lambda: overcommit_sim.recommend_factor()):
+                 lambda: overcommit_sim.recommend_factor(),
+                 lambda: next(make_train_iterator(SyntheticLMDataset(
+                     vocab_size=8, seq_len=4, global_batch=1))),
+                 lambda: make_train_state(_TINY, 0),
+                 lambda: load_checkpoint(ROOT, {})):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     with pytest.raises(ValueError):

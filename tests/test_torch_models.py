@@ -502,8 +502,8 @@ def test_kernel_checks_pass_at_full_width(module):
     attention shapes: prefill q/k/v, and decode q against each layer's
     cache view of the stacked decode state.  B7 takes its wgmma route on
     the MoE configs' expert slabs.  The reduced configs' heads (16 or 8)
-    are refused by B6 and by B5's bf16 route (its TMA boxes are 64
-    wide); B5's float32 route takes them."""
+    are refused by B6's and B5's bf16 routes (B6's fragments need d >=
+    32, B5's TMA boxes are 64 wide); both float32 routes take them."""
     cfg = PORT_ARCH[module].CONFIG
     assert b6.check_inputs(*_meta_prefill(cfg), window=1024) == 1
     st = models.init_decode_state(cfg, 8, 4352, device="meta")
@@ -522,8 +522,10 @@ def test_kernel_checks_pass_at_full_width(module):
         assert grouped_matmul_route(xe, moe["w_gate"][0]) == "wgmma"
         assert grouped_matmul_route(h, moe["w_down"][0]) == "wgmma"
     small = PORT_ARCH[module].REDUCED
+    assert b6.check_inputs(*_meta_prefill(small, S=64)) == 0
     with pytest.raises(ValueError, match="takes d in"):
-        b6.check_inputs(*_meta_prefill(small, S=64))
+        b6.check_inputs(*(t.to(torch.bfloat16)
+                          for t in _meta_prefill(small, S=64)))
     sq = torch.empty((2, small.n_heads, small.d_head), device="meta")
     sc = torch.empty((2, 64, small.n_kv_heads, small.d_head), device="meta")
     assert b5.check_inputs(sq, sc, sc) == 0
