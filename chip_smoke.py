@@ -223,6 +223,43 @@ and last, with the metrics registry on:
      d 8 and 16 (causal and windowed, S not a multiple of the tile), the
      train CLI's reduced shapes (B8 on views into the conv output) and
      the story's.
+ 13. The mesh path over ``torch.distributed`` (seed 29), after phase
+     12: (a) a live 1 x 1 mesh (a world of one through a ``FileStore``,
+     NCCL) on the card, each run equal bit for bit to its run without a
+     mesh: llama3.2-3b at full width (28 layers, bf16), the B 2 x S 4,096
+     prefill logits and 8 decode steps at B 8 against a 4,352-slot cache
+     under ``sharding_rules``; phi3.5-moe (2 layers) prefill with
+     ``MoEParallel(mode="shard_map", mesh=...)`` against ``mode="auto"``;
+     one qwen3-1.7b train step at phase 12c's shape under
+     ``torch.use_deterministic_algorithms`` (loss, metrics and every
+     leaf); the 65,536-scenario sweep with ``mesh=`` against phase 3's
+     verdicts; every kernel call held in phase 6; (b) which backend lets
+     2 and 4 processes share the one card: NCCL and gloo with CUDA
+     tensors, each trying all_reduce (SUM, MAX), all_gather, all_to_all
+     and send/recv (last: gloo's can end its process), all worlds at
+     once, one line of what ran and what was refused; where all_reduce
+     runs on 4 processes, llama3.2-3b's split-KV decode at full width on
+     a (1, 4) mesh of them: 4 steps at B 8 from caches that (a) filled
+     with a 4,096-token prefill, so every rank's 1,088-slot block holds
+     live keys (the caches' sequence split four ways, the partial
+     softmax merged by pmax / psum; no B5 launch), held against (a)'s
+     one-rank B5 decode from the same caches within 2x a control
+     measured on the same inputs (the one-rank decode with B5's plain
+     version, float32 softmax as split-KV's partials); the same decode
+     with the last rank's keys dropped must miss that limit; otherwise
+     the line says so; (c)
+     the dry run (``launch.dryrun``) on the ``meta`` device over the
+     abstract (16, 16) mesh for one arch a family x four shapes (every
+     cell ``ok`` or the documented ``long_500k`` skip), the roofline
+     table (``launch.roofline``, lines ``roofline |``), and the cost
+     recorder's FLOPs of llama3.2-3b's prefill (B 2 x S 4,096) and of
+     qwen3-1.7b's train step (B 2 x S 2,048) on the card equal exactly to
+     their meta runs on a (1, 1) mesh, with each one's share of peak
+     (model FLOPs over CUDA-event seconds x 989e12); ``HBM_BYTES`` equal
+     to the card's total memory.  The two runs are timed right after
+     (a), on a quiet host; then the dry run's cells run in six worker
+     processes beside the recorder runs and (b).  No kernel is added: the
+     meta route launches nothing.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
@@ -2905,6 +2942,21 @@ class CallRecorder:
             setattr(self.ops, name, fn)
 
 
+class OpSwap:
+    """Inside a ``with`` block, ``module.name`` is ``fn``."""
+
+    def __init__(self, module, name: str, fn):
+        self.module, self.name, self.fn = module, name, fn
+
+    def __enter__(self):
+        self._saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._saved)
+
+
 def hold_card_cpu(torch, device, module: str, n_layers: int, B: int, S: int,
                   seed: int, card: str) -> dict:
     """Phase 10a for one config: the fp32 forward (hidden states and the
@@ -4132,6 +4184,570 @@ def phase_training(torch, device, card: str, held: set) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the mesh path over torch.distributed, the dry run and roofline
+# ---------------------------------------------------------------------------
+
+MESH_SEED = 29              # phase 13's weights and tokens
+MESH_DECODE = (8, 8, 4352)  # phase 13a/b decode: batch, steps, cache slots
+SPLITKV_STEPS = 4           # 13b: the first steps of 13a's decode tokens
+SPLITKV_RANKS = 4           # phase 13b: the (1, 4) split-KV mesh
+# 13b decodes after a prefill of this many tokens: past 3 x 1,088 slots,
+# so each rank's block of the 4,352-slot caches holds live keys
+SPLITKV_PREFILL = 4096
+SPLITKV_STATE = os.path.join(ROOT, "build", "phase13b_state.pt")
+PROBE_WORLDS = ((2, "nccl"), (4, "nccl"), (2, "gloo"), (4, "gloo"))
+PROBE_OPS = ("all_reduce", "all_gather", "all_to_all", "send_recv")
+PROBE_TIMEOUT_S = 240
+# phase 13c: one arch a family for the in-phase dry run (the full table
+# of ten archs x four shapes is launch/dryrun.py --all's)
+DRYRUN_ARCHS = ("llama3.2-3b", "phi3.5-moe-42b-a6.6b", "mamba2-780m",
+                "hymba-1.5b", "internvl2-76b", "musicgen-large")
+DRYRUN_WORKERS = 6          # its cells run beside 13b, in their own processes
+# 13b's limit: SPLITKV_MARGIN x the distance from the one-rank B5 decode
+# of the same decode with B5's plain version (a float32 softmax over the
+# whole cache, rounded to bf16 as split-KV's merge is), measured on the
+# same caches and tokens: the rounding two right answers differ by
+SPLITKV_MARGIN = 2.0
+
+
+def _probe_rank(rank: int, world: int, backend: str, store: str,
+                out: str, splitkv: bool, device: str = "cuda") -> None:
+    """One process of a 13b world on the card: each collective tried and
+    written down as it finishes (send/recv last: gloo with CUDA tensors
+    can end the process there); with ``splitkv``, llama3.2-3b's split-KV
+    decode on a (1, world) mesh after the collectives it needs."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    res = {}
+
+    def save():
+        with open(f"{out}.{rank}.json", "w") as fh:
+            json.dump(res, fh)
+
+    try:
+        from repro_torch.launch.mesh import init_world
+        dev = init_world(store, rank, world, device, backend=backend,
+                         timeout_s=60)
+    except Exception as exc:
+        res["init"] = f"{type(exc).__name__}: {str(exc)[:200]}"
+        save()
+        os._exit(0)
+
+    def attempt(name, fn):
+        try:
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            res[name] = "ok"
+        except Exception as exc:
+            res[name] = f"{type(exc).__name__}: {str(exc)[:300]}"
+        save()
+
+    def all_reduce():
+        for op, want in ((dist.ReduceOp.SUM, world * (world + 1) / 2),
+                         (dist.ReduceOp.MAX, world)):
+            x = torch.full((8,), float(rank + 1), device=dev)
+            dist.all_reduce(x, op=op)
+            assert float(x[0]) == want, (op, float(x[0]))
+
+    def all_gather():
+        x = torch.full((4,), float(rank), device=dev)
+        o = torch.empty(4 * world, device=dev)
+        dist.all_gather_into_tensor(o, x)
+        assert o.view(world, 4)[:, 0].tolist() == [float(r) for r in
+                                                     range(world)]
+
+    def all_to_all():
+        x = torch.arange(world, device=dev, dtype=torch.float32) + 10 * rank
+        o = torch.empty_like(x)
+        dist.all_to_all_single(o, x)
+        assert o.tolist() == [float(10 * r + rank) for r in range(world)]
+
+    def send_recv():
+        x = torch.full((4,), float(rank), device=dev)
+        if rank == 0:
+            dist.send(x, 1)
+        elif rank == 1:
+            dist.recv(x, 0)
+            assert float(x[0]) == 0.0
+
+    attempt("all_reduce", all_reduce)
+    attempt("all_gather", all_gather)
+    attempt("all_to_all", all_to_all)
+    if splitkv and res["all_reduce"] == "ok":
+        try:
+            res["splitkv"] = _splitkv_rank(torch, dev, world, out, rank)
+        except Exception as exc:
+            res["splitkv"] = f"{type(exc).__name__}: {str(exc)[:300]}"
+        save()
+    attempt("send_recv", send_recv)
+    os._exit(0)
+
+
+def _splitkv_rank(torch, dev, world: int, out: str, rank: int) -> dict:
+    """llama3.2-3b at full width (28 layers, bf16): SPLITKV_STEPS decode
+    steps from the caches 13a filled (SPLITKV_STATE), their sequence
+    split over a (1, world) mesh; rank 0 writes its logits."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.ctx import sharding_rules
+    from repro_torch.dist.smap import put
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import DecodeState, decode_step, init_params
+    cfg = arch_config("llama3_2_3b")
+    B, steps, slots = MESH_DECODE
+    params = init_params(cfg, MESH_SEED, device=dev)
+    toks = torch.from_numpy(host_tokens(cfg, B, steps, MESH_SEED + 1)).to(dev)
+    mesh = make_local_mesh(1, world, device=dev)
+    # the whole caches stay on the host (mapped from the file): only the
+    # rank's block of the sequence reaches the card (four ranks share it)
+    whole = DecodeState(*torch.load(SPLITKV_STATE, mmap=True))
+    check(tuple(whole.k_cache.shape[1:3]) == (B, slots),
+          f"13b: caches {tuple(whole.k_cache.shape)}")
+    state = put(whole, shd.decode_state_shardings(cfg, mesh, B), mesh)
+    state = type(state)(*(t.to(dev) for t in state))
+    ops.decode_attention.launches = 0
+    logits = []
+    t0 = time.perf_counter()
+    with torch.no_grad(), sharding_rules(mesh, param_layout="whole"):
+        for t in range(SPLITKV_STEPS):
+            lg, state = decode_step(params, cfg, state, toks[:, t])
+            logits.append(lg.float())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rank == 0:
+        torch.save(torch.stack(logits).cpu(), f"{out}.splitkv.pt")
+    return {"cache_block": list(state.k_cache.shape),
+            "first_slot": rank * state.k_cache.shape[2],
+            "b5_launches": ops.decode_attention.launches,
+            "ms_a_step": wall / SPLITKV_STEPS * 1e3}
+
+
+def splitkv_inputs(torch, ops, params, cfg, device, dtoks, calls) -> dict:
+    """13b's caches and references, on this process's one rank:
+    MESH_DECODE's caches holding the K and V of a SPLITKV_PREFILL-token
+    prefill (as B6 receives them, before their repeat to the query
+    heads), saved to SPLITKV_STATE for the ranks; then SPLITKV_STEPS
+    decode steps from them with B5 (the reference, its calls recorded),
+    with B5's plain version (the control the limit is set from) and with
+    the plain version blind to the last rank's block (a merge that
+    dropped that rank's partial)."""
+    from repro_torch.kernels.ref import ref_decode_attention
+    from repro_torch.models import decode_step, forward, init_decode_state
+    B, _, slots = MESH_DECODE
+    L0 = SPLITKV_PREFILL
+    group = cfg.n_heads // cfg.n_kv_heads
+    state = init_decode_state(cfg, B, slots, torch.bfloat16, length=L0,
+                              device=device)
+    layer = iter(range(cfg.n_layers))
+    b6 = ops.flash_attention
+
+    def capture(q, k, v, **kw):
+        i = next(layer)
+        state.k_cache[i, :, :L0] = k[:, :, ::group]
+        state.v_cache[i, :, :L0] = v[:, :, ::group]
+        return b6(q, k, v, **kw)
+
+    toks = torch.from_numpy(host_tokens(cfg, B, L0, MESH_SEED + 3))
+    with torch.no_grad(), OpSwap(ops, "flash_attention", capture):
+        forward(params, cfg, toks.to(device))
+    check(next(layer, None) is None, "13b: the prefill skipped a layer")
+    torch.save(tuple(t.cpu() for t in state), SPLITKV_STATE)
+    cut = (SPLITKV_RANKS - 1) * slots // SPLITKV_RANKS
+
+    def dropped(q, k_cache, v_cache, length, window):
+        return ref_decode_attention(q, k_cache[:, :cut], v_cache[:, :cut],
+                                    torch.clamp(length, max=cut), window)
+
+    def decode(attention):
+        st = state._replace(k_cache=state.k_cache.clone(),
+                            v_cache=state.v_cache.clone())
+        lgs = []
+        with torch.no_grad(), OpSwap(ops, "decode_attention", attention):
+            for t in range(SPLITKV_STEPS):
+                lg, st = decode_step(params, cfg, st, dtoks[:, t])
+                lgs.append(lg.float())
+        return torch.stack(lgs).cpu()
+
+    with calls:
+        ref = decode(ops.decode_attention)
+    plain = decode(ref_decode_attention)
+    drop = decode(dropped)
+    return {"ref": ref, "plain_err": float((plain - ref).abs().max()),
+            "drop_err": float((drop - ref).abs().max())}
+
+
+def _dryrun_cell(cell: tuple) -> tuple:
+    """One 13c dry-run cell in a worker process (the meta device only)."""
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import dryrun
+    arch_id, shape = cell
+    r = dryrun.run_cell(arch_id, shape, "single", force=True)
+    return arch_id, shape, r["status"], r.get("error"), r.get("trace_s")
+
+
+def start_dryrun(shapes) -> tuple:
+    """13c's dry-run cells on a pool of worker processes, the train cells
+    (the longest: the plain SSD backward's chunk loop) first; returns
+    (pool, pending result)."""
+    import multiprocessing as mp
+    cells = sorted(((a, s) for a in DRYRUN_ARCHS for s in shapes),
+                   key=lambda c: c[1] != "train_4k")
+    pool = mp.get_context("spawn").Pool(DRYRUN_WORKERS)
+    return pool, pool.map_async(_dryrun_cell, cells, chunksize=1)
+
+
+def probe_worlds(torch, card: str, device: str = "cuda") -> tuple:
+    """13b: every PROBE_WORLDS world started at once (processes sharing
+    the one card, a FileStore rendezvous each); the 4-rank gloo world
+    also runs the split-KV decode.  Returns (results by world, the
+    split-KV logits or None)."""
+    import multiprocessing as mp
+    import shutil
+    ctx = mp.get_context("spawn")
+    base = os.path.join(ROOT, "build", "phase13b")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    procs, names = [], []
+    for world, backend in PROBE_WORLDS:
+        name = f"{backend}{world}"
+        names.append((name, world))
+        out = os.path.join(base, name)
+        for r in range(world):
+            p = ctx.Process(target=_probe_rank, args=(
+                r, world, backend, out + ".store", out,
+                backend == "gloo" and world == SPLITKV_RANKS, device))
+            p.start()
+            procs.append(p)
+    deadline = time.monotonic() + PROBE_TIMEOUT_S
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    stuck = sum(p.is_alive() for p in procs)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    results = {}
+    for name, world in names:
+        results[name] = {}
+        for r in range(world):
+            path = os.path.join(base, f"{name}.{r}.json")
+            results[name][r] = (json.load(open(path)) if os.path.exists(path)
+                                else {"process": "ended before writing"})
+    sk = os.path.join(base, f"gloo{SPLITKV_RANKS}.splitkv.pt")
+    logits = torch.load(sk) if os.path.exists(sk) else None
+    return results, logits, stuck
+
+
+def _verdict(world_res: dict, op: str) -> str:
+    """"ran" when every rank ran ``op``; else the first refusal's words
+    (the message's end, where NCCL names the reason), or that the
+    process ended inside the op."""
+    vals = [r.get(op, r.get("init", r.get(
+        "process", "the process ended inside it"))) for r in
+        world_res.values()]
+    if all(v == "ok" for v in vals):
+        return "ran"
+    bad = next(v for v in vals if v != "ok")
+    return "refused: " + bad.splitlines()[0][-90:]
+
+
+def phase_mesh(torch, device, card: str, held: set, agg, tl_cfg, graph,
+               grid: dict, sweep_res: dict) -> dict:
+    """Phase 13: (a) a live 1 x 1 NCCL mesh on the card: llama3.2-3b's
+    prefill and decode, phi3.5-moe's expert-parallel prefill, one
+    qwen3-1.7b train step and the 65,536-scenario sweep each bit-equal to
+    their runs without a mesh; (b) which backend lets 2 and 4 processes
+    share the card, and split-KV decode where one does; (c) the dry run
+    on meta over the (16, 16) mesh, the roofline table, and the cost
+    recorder's FLOPs of two real runs == their meta runs, with their
+    shares of peak."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.core.sweep_engine import SweepEngine
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.dist.ctx import sharding_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import (HBM_BYTES, PEAK_FLOPS_BF16,
+                                         init_world, make_abstract_mesh,
+                                         make_local_mesh, make_world_mesh)
+    from repro_torch.models import (MoEParallel, decode_step, forward,
+                                    init_abstract, init_decode_state,
+                                    init_params, logits_fn)
+    from repro_torch.obs.cost import CostRecorder
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (make_prefill_step, make_train_state,
+                                   make_train_state_abstract,
+                                   make_train_step)
+    out = {"seconds": {}}
+    t_phase = time.perf_counter()
+    store = os.path.join(ROOT, "build", "phase13a.store")
+    shutil.rmtree(store, ignore_errors=True)
+    if os.path.exists(store):
+        os.remove(store)
+    init_world(store, 0, 1, device.type)
+    pool = None
+    try:
+        mesh = make_local_mesh(1, 1, device=device)
+        check(mesh.live and mesh.size == 1, f"13a: {mesh}")
+        calls = CallRecorder(ops)
+
+        # 13a: llama3.2-3b at full width, prefill logits and decode
+        t0 = time.perf_counter()
+        cfg = arch_config("llama3_2_3b")
+        params = init_params(cfg, MESH_SEED, device=device)
+        B, S = PREFILL_SHAPE
+        toks = torch.from_numpy(host_tokens(cfg, B, S, MESH_SEED)).to(device)
+        with torch.no_grad(), calls:
+            plain = logits_fn(params, cfg, forward(params, cfg, toks)[0])
+            with sharding_rules(mesh):
+                meshed = logits_fn(params, cfg, forward(params, cfg, toks)[0])
+        check(torch.equal(plain, meshed), "13a: llama3.2-3b prefill logits "
+              "under a 1 x 1 mesh differ from the run without one")
+        del plain, meshed
+        Bd, steps, slots = MESH_DECODE
+        dtoks = torch.from_numpy(host_tokens(cfg, Bd, steps,
+                                             MESH_SEED + 1)).to(device)
+
+        def decode(rules):
+            st = init_decode_state(cfg, Bd, slots, torch.bfloat16,
+                                   device=device)
+            lgs = []
+            with torch.no_grad(), calls:
+                for t in range(steps):
+                    if rules:
+                        with sharding_rules(mesh):
+                            lg, st = decode_step(params, cfg, st, dtoks[:, t])
+                    else:
+                        lg, st = decode_step(params, cfg, st, dtoks[:, t])
+                    lgs.append(lg)
+            return torch.stack(lgs)
+
+        d_plain, d_mesh = decode(False), decode(True)
+        check(torch.equal(d_plain, d_mesh), "13a: llama3.2-3b decode logits "
+              "under a 1 x 1 mesh differ")
+        del d_plain, d_mesh
+        sk_in = splitkv_inputs(torch, ops, params, cfg, device, dtoks, calls)
+        out["seconds"]["13a llama"] = time.perf_counter() - t0
+
+        # 13a: phi3.5-moe, expert-parallel dispatch against auto
+        t0 = time.perf_counter()
+        cfg_phi = arch_config("phi3_5_moe_42b_a6_6b", n_layers=2)
+        p_phi = init_params(cfg_phi, MESH_SEED, device=device)
+        ptoks = torch.from_numpy(host_tokens(cfg_phi, B, S,
+                                             MESH_SEED + 2)).to(device)
+        with torch.no_grad(), calls:
+            h_auto, aux_auto = forward(p_phi, cfg_phi, ptoks, MoEParallel())
+            h_sm, aux_sm = forward(p_phi, cfg_phi, ptoks, MoEParallel(
+                mode="shard_map", fsdp_axes=("data",), mesh=mesh))
+        check(torch.equal(h_auto, h_sm) and torch.equal(aux_auto, aux_sm),
+              "13a: phi3.5-moe shard_map on a 1 x 1 mesh differs from auto")
+        del p_phi, h_auto, h_sm
+        out["seconds"]["13a phi"] = time.perf_counter() - t0
+
+        # 13a: one qwen3-1.7b train step at phase 12c's shape
+        t0 = time.perf_counter()
+        cfg_q = arch_config("qwen3_1_7b")
+        opt = make_optimizer()
+        step, _ = make_train_step(cfg_q, opt)
+        Bt, St = TRAIN_SHAPE
+        ds = SyntheticLMDataset(vocab_size=cfg_q.vocab_size, seq_len=St,
+                                global_batch=Bt, seed=MESH_SEED)
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in ds.batch(0).items()}
+        state = make_train_state(cfg_q, MESH_SEED, opt, device=device)
+        torch.use_deterministic_algorithms(True)
+        try:
+            with calls:
+                st1, m1 = step(state, batch)
+                with sharding_rules(mesh):
+                    st2, m2 = step(state, batch)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(all(torch.equal(m1[k], m2[k]) for k in m1),
+              f"13a: qwen3-1.7b step metrics differ: "
+              f"{ {k: (float(m1[k]), float(m2[k])) for k in m1} }")
+        leaves = same_tree(st2, st1, "13a: qwen3-1.7b train step under a "
+                           "1 x 1 mesh")
+        loss = float(m1["loss"])
+        del st1, st2
+        out["seconds"]["13a qwen3 step"] = time.perf_counter() - t0
+
+        # 13a: the paper-scale sweep over a ("scenarios",) mesh of one
+        t0 = time.perf_counter()
+        smesh = make_world_mesh((1,), ("scenarios",), device=device)
+        eng = SweepEngine(agg, tl_cfg, graph=graph, seed=0, device=device,
+                          mesh=smesh)
+        check(eng._shard_for((16, 4096)), "13a: an explicit mesh must shard")
+        res = eng.run(grid)
+        for k in sweep_res:
+            check(np.array_equal(res[k], sweep_res[k], equal_nan=True),
+                  f"13a: sweep {k} under a mesh differs from phase 3")
+        out["seconds"]["13a sweep"] = time.perf_counter() - t0
+        unheld = calls.signatures - held
+        check(not unheld, f"13a: kernel calls that phase 6 does not hold "
+              f"against the plain version: {sorted(unheld)}")
+        log(f"phase 13a ok: 1 x 1 NCCL mesh == no mesh bit for bit: "
+            f"llama3.2-3b prefill logits ({B} x {S}) and {steps} decode "
+            f"steps at B {Bd}, phi3.5-moe (2 layers) shard_map == auto, "
+            f"qwen3-1.7b train step ({leaves} leaves, loss {loss:.6f}), "
+            f"the {len(grid['traffic_mult'])}-scenario sweep == phase 3 "
+            f"({len(sweep_res)} keys) [{card}]")
+
+        # 13c: the two real runs, each timed on a quiet host for its share
+        # of peak (the dry run and the probe worlds have not started)
+        t0 = time.perf_counter()
+        abstract = make_abstract_mesh((1, 1))
+        prefill = make_prefill_step(cfg)
+        meta_toks = torch.empty((B, S), dtype=torch.int64, device="meta")
+        meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                      for k, v in batch.items()}
+        runs = {"llama3.2-3b prefill": (
+                    lambda: prefill(init_abstract(cfg), meta_toks),
+                    lambda: prefill(params, toks),
+                    roofline.step_flops(cfg, "prefill", B, S)),
+                "qwen3-1.7b train step": (
+                    lambda: step(make_train_state_abstract(cfg_q, opt),
+                                 meta_batch),
+                    lambda: step(state, batch),
+                    roofline.step_flops(cfg_q, "train", Bt, St))}
+        shares = {}
+        for label, (_, on_card, mf) in runs.items():
+            ms = device_ms(torch, on_card, 3, warmup=1)
+            shares[label] = {"model_flops": mf, "ms": ms}
+        out["seconds"]["13c timing"] = time.perf_counter() - t0
+
+        # 13c's dry run starts now, in worker processes on the host's
+        # cores, beside the recorder runs and 13b
+        from repro_torch.configs import SHAPES
+        t_dry = time.perf_counter()
+        pool, pending = start_dryrun(list(SHAPES))
+
+        # 13c: the recorder on the card == on meta
+        t0 = time.perf_counter()
+        for label, (on_meta, on_card, mf) in runs.items():
+            with CostRecorder() as rec_meta, sharding_rules(abstract):
+                on_meta()
+            with CostRecorder() as rec_card, sharding_rules(mesh):
+                on_card()
+            check(rec_meta.flops == rec_card.flops, f"13c: {label} FLOPs "
+                  f"on meta {rec_meta.flops} != on the card "
+                  f"{rec_card.flops}")
+            ms = shares[label]["ms"]
+            shares[label].update(
+                flops=rec_card.flops,
+                share_of_peak=mf / (ms / 1e3 * PEAK_FLOPS_BF16),
+                counted_share=rec_card.flops / (ms / 1e3 * PEAK_FLOPS_BF16))
+        if device.type == "cuda":
+            check(HBM_BYTES == torch.cuda.get_device_properties(
+                device).total_memory, "13c: launch.mesh.HBM_BYTES is not "
+                  "this card's total memory")
+        del params, state, runs
+        out["shares"] = shares
+        out["seconds"]["13c recorder"] = time.perf_counter() - t0
+
+        # 13b: processes sharing the card, this process's cached and
+        # cycle-held memory given back first
+        t0 = time.perf_counter()
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            log(f"phase 13b: this process holds "
+                f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+                f"({torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB "
+                f"reserved) as the probe worlds start")
+        probed, sk_logits, stuck = probe_worlds(torch, card, device.type)
+        line = {name: {op: _verdict(r, op) for op in PROBE_OPS}
+                for name, r in probed.items()}
+        log(f"phase 13b probe (2 and 4 processes on one card; "
+            f"{stuck} killed at the {PROBE_TIMEOUT_S} s limit): "
+            + json.dumps(line))
+        gloo4 = probed[f"gloo{SPLITKV_RANKS}"]
+        sk = [r.get("splitkv") for r in gloo4.values()]
+        allowed = line[f"gloo{SPLITKV_RANKS}"]["all_reduce"] == "ran"
+        out["probe"] = line
+        if allowed:
+            check(sk_logits is not None and all(isinstance(x, dict)
+                                                for x in sk),
+                  f"13b: split-KV decode did not run: {sk}")
+            check(all(x["b5_launches"] == 0 for x in sk),
+                  f"13b: the split-KV path launched B5: {sk}")
+            ref = sk_in["ref"]
+            scale = float(ref.abs().max())
+            err = float((sk_logits - ref).abs().max())
+            limit = SPLITKV_MARGIN * sk_in["plain_err"]
+            check(sk_in["drop_err"] > limit, f"13b: the limit {limit:.4g} "
+                  f"passes a merge that drops the last rank's keys "
+                  f"({sk_in['drop_err']:.4g})")
+            check(err <= limit, f"13b: split-KV logits differ by {err:.4g}, "
+                  f"limit {limit:.4g}")
+            out["splitkv"] = {"max_abs_err": err, "limit": limit,
+                              "plain_err": sk_in["plain_err"],
+                              "drop_err": sk_in["drop_err"],
+                              "max_logit": scale, "ranks": sk}
+            log(f"phase 13b ok: llama3.2-3b split-KV decode on a (1, "
+                f"{SPLITKV_RANKS}) gloo mesh of {SPLITKV_RANKS} processes "
+                f"on the card, {SPLITKV_STEPS} steps at B {Bd} from "
+                f"{SPLITKV_PREFILL} cached tokens, cache block "
+                f"{sk[0]['cache_block']} (first slots "
+                f"{[x['first_slot'] for x in sk]}, all live): max |logit - "
+                f"one-rank B5 logit| {err:.6g} of max|logit| {scale:.6g}; "
+                f"limit {SPLITKV_MARGIN} x {sk_in['plain_err']:.6g} (B5's "
+                f"plain version against B5) = {limit:.6g}; the last rank's "
+                f"keys dropped: {sk_in['drop_err']:.6g}; "
+                f"{sk[0]['ms_a_step']:.1f} ms a step on rank 0 [{card}]")
+        else:
+            log("phase 13b: no backend ran all_reduce for processes sharing "
+                "the card; split-KV decode across ranks waits for a "
+                "multi-GPU machine")
+        if os.path.exists(SPLITKV_STATE):
+            os.remove(SPLITKV_STATE)
+        out["seconds"]["13b"] = time.perf_counter() - t0
+
+        # 13c: the dry run on meta over the (16, 16) mesh, the roofline
+        done = pending.get(timeout=PROBE_TIMEOUT_S)
+        pool.close()
+        pool.join()
+        pool = None
+        cells = {}
+        for arch_id, shape, status, error, trace_s in done:
+            cells[(arch_id, shape)] = status
+            check(status == "ok" or (status == "skipped"
+                                     and shape == "long_500k"),
+                  f"13c: dry run {arch_id} {shape}: {error or status}")
+        rows = [r for r in roofline.analyze("single")
+                if r["arch"] in DRYRUN_ARCHS]
+        for line_md in roofline.to_markdown(rows).splitlines():
+            log(f"roofline | {line_md}")
+        log("13c dry-run trace seconds: " + json.dumps(
+            {f"{a} {s}": t for a, s, _, _, t in done}))
+        out["seconds"]["13c dry run (from its start)"] = \
+            time.perf_counter() - t_dry
+
+        log("phase 13c ok: " + ", ".join(
+            f"{k}: FLOPs meta == card {v['flops']:.6e}, {v['ms']:.3f} ms, "
+            f"model FLOPs {v['model_flops']:.6e} = {v['share_of_peak']:.4f} "
+            f"of peak (counted {v['counted_share']:.4f})"
+            for k, v in shares.items()) + f"; dry run "
+            f"{sum(s == 'ok' for s in cells.values())} ok, "
+            f"{sum(s == 'skipped' for s in cells.values())} skipped [{card}]")
+
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        dist.destroy_process_group()
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    log(f"phase 13 seconds by part: {json.dumps(out['seconds'])}")
+    return out
+
+
 def main_grid(n: int) -> dict:
     from repro_torch.core.scenarios import scenario_grid
     from repro_torch.core.sweep_engine import tile_grid
@@ -4472,6 +5088,18 @@ def main() -> int:
     by_name["decode_attention"]["launches_by_path"][
         "system story (phase 12d)"] = \
         trained["system"]["launches"]["decode_attention"]
+
+    # phase 13: the mesh path over torch.distributed (1 x 1 NCCL mesh ==
+    # no mesh, processes sharing the card, split-KV), the dry run and the
+    # roofline; no kernel is added and the meta route launches nothing
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    meshed = phase_mesh(torch, device, card,
+                        set().union(*(e["held"] for e in k_model)), agg, cfg,
+                        graph, grid, res)
+    log(f"phase 13 ok: {time.perf_counter() - t0:.2f} s, "
+        + json.dumps({"shares": meshed["shares"],
+                      "probe": meshed["probe"]}) + f" [{card}]")
 
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",

@@ -9,9 +9,14 @@ joined by ``/`` (a ``TrainState`` gives ``.params/embed``,
 ``.opt/.m/layers/attn/wk``, ``.opt/.step``, ``.step``).  With the same
 files and paths, each package loads the other's checkpoints.  numpy has
 no bfloat16, so a bf16 leaf is written and read as its raw 16-bit words
-under the reference's dtype string ``bfloat16``.  The port runs on one
-device: a checkpoint loads onto one ``device`` (the reference's
-reshard-on-load onto a mesh comes with ROADMAP Queue A item 3).
+under the reference's dtype string ``bfloat16``.
+
+Reshard-on-load: ``load_checkpoint(..., shardings=specs, mesh=mesh)``
+gives each rank only its block of each leaf, read with ``np.memmap``
+slicing (never the whole file), onto any mesh.  Saving from a mesh
+(``save_checkpoint(..., shardings=specs, mesh=mesh)``) gathers each leaf
+to whole and rank 0 writes the same unsharded format, so the two
+packages still load each other's files.
 
 ``AsyncCheckpointer`` double-buffers: the device-to-host copy happens on
 the caller's thread, serialization on a daemon thread, so the training
@@ -129,10 +134,26 @@ def _host_leaves(tree, copy: bool = False) -> list:
     return out
 
 
+def whole(tree: Any, shardings: Any = None, mesh=None) -> Any:
+    """The whole leaves of a tree of the rank's blocks laid out by
+    ``shardings`` on ``mesh`` (every rank takes part); ``tree`` itself
+    without a mesh."""
+    if mesh is None or shardings is None:
+        return tree
+    from repro_torch.dist.smap import gather
+    return gather(tree, shardings, mesh)
+
+
 def save_checkpoint(directory: str | Path, step: int, tree: Any,
-                    extra: Optional[Dict[str, Any]] = None) -> Path:
+                    extra: Optional[Dict[str, Any]] = None,
+                    shardings: Any = None, mesh=None) -> Optional[Path]:
     """Atomic (write-to-temp + rename) full checkpoint of a tree of
-    tensors (dicts, NamedTuples, lists; numbers and numpy arrays too)."""
+    tensors (dicts, NamedTuples, lists; numbers and numpy arrays too).
+    From a mesh (``shardings`` the tree's specs), every rank gathers the
+    whole leaves and rank 0 writes them; other ranks return None."""
+    tree = whole(tree, shardings, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return None
     return _write(Path(directory), step, _host_leaves(tree), extra)
 
 
@@ -145,22 +166,40 @@ def latest_step(directory: str | Path) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _read(path: Path, m: dict) -> torch.Tensor:
-    """One leaf's file as a CPU tensor of its manifest dtype."""
-    if m["dtype"] == "bfloat16":
-        words = np.fromfile(path, dtype=np.int16).reshape(m["shape"])
-        return torch.from_numpy(words).view(torch.bfloat16)
-    arr = np.fromfile(path, dtype=np.dtype(m["dtype"])).reshape(m["shape"])
-    return torch.from_numpy(arr)
+def _read(path: Path, m: dict, block=None) -> torch.Tensor:
+    """One leaf's file as a CPU tensor of its manifest dtype; ``block``
+    (a slice a dimension) reads only that block, through ``np.memmap``."""
+    bf16 = m["dtype"] == "bfloat16"
+    dtype = np.int16 if bf16 else np.dtype(m["dtype"])
+    if block is None or not m["shape"]:
+        arr = np.fromfile(path, dtype=dtype).reshape(m["shape"])
+    elif 0 in m["shape"]:          # nothing to read: the block's shape
+        arr = np.empty([len(range(*b.indices(n)))
+                        for b, n in zip(block, m["shape"])], dtype=dtype)
+    else:
+        arr = np.array(np.memmap(path, dtype=dtype, mode="r",
+                                 shape=tuple(m["shape"]))[block])
+    t = torch.from_numpy(arr)
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 def load_checkpoint(directory: str | Path, like: Any,
-                    step: Optional[int] = None, device=None
+                    step: Optional[int] = None, device=None,
+                    shardings: Any = None, mesh=None
                     ) -> Tuple[Any, Dict[str, Any]]:
     """Restore into the structure of ``like`` (a tree of tensors, ``meta``
     ones too): each leaf in the dtype of ``like``'s leaf, on ``device``
-    (default: the CUDA card).  Returns ``(tree, extra)``."""
+    (default: the CUDA card).  With ``shardings`` (a tree of specs like
+    ``like``) and a live ``mesh``, each leaf is the rank's block, read
+    from the file alone: reshard-on-load onto any mesh.  Returns
+    ``(tree, extra)``."""
     dev = resolve_device(device)
+    specs = None
+    if shardings is not None:
+        from repro_torch.dist.smap import block_slices
+        if mesh is None:
+            raise ValueError("load_checkpoint: shardings need a mesh")
+        specs = [s for _, s in _flatten_specs(like, shardings)]
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -170,14 +209,40 @@ def load_checkpoint(directory: str | Path, like: Any,
     manifest = json.loads((d / _MANIFEST).read_text())
     by_path = {m["path"]: m for m in manifest["leaves"]}
     out = []
-    for path, leaf in _flatten_with_paths(like):
+    for i, (path, leaf) in enumerate(_flatten_with_paths(like)):
         m = by_path.get(path)
         if m is None:
             raise KeyError(f"checkpoint {d} has no leaf {path}")
-        t = _read(d / m["file"], m)
+        block = (None if specs is None
+                 else block_slices(m["shape"], specs[i], mesh))
+        t = _read(d / m["file"], m, block)
         target = leaf.dtype if isinstance(leaf, torch.Tensor) else t.dtype
         out.append(t.to(device=dev, dtype=target))
     return _unflatten(like, out), manifest["extra"]
+
+
+def _flatten_specs(like, specs) -> List[Tuple[str, Any]]:
+    """``[(path, spec)]`` of a spec tree matching ``like``, in
+    ``_flatten_with_paths`` order (a spec is a tuple; a None subtree
+    is replicated)."""
+    out = []
+
+    def walk(t, s):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], None if s is None else s[k])
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            for f in t._fields:
+                walk(getattr(t, f), None if s is None else getattr(s, f))
+        elif isinstance(t, (list, tuple)):
+            for j, v in enumerate(t):
+                walk(v, None if s is None else s[j])
+        else:
+            out.append((None, () if s is None else s))
+    walk(like, specs)
+    return out
 
 
 class AsyncCheckpointer:

@@ -1,6 +1,6 @@
-"""Fused sweep engine: full-peak scenario ensembles on one CUDA card.
+"""Fused sweep engine: full-peak scenario ensembles on the CUDA card.
 
-Port of ``repro/core/sweep_engine.py`` (one device).  For
+Port of ``repro/core/sweep_engine.py``.  For
 every scenario of a grid, on the device and with no host round trip
 between stages:
 
@@ -27,9 +27,16 @@ only in ``t_availability_mean``.
 verdict indicators, the capacity optimizer's objective; see
 ``timeline_sim``); the hard path is untouched by it.
 
-Not ported yet: multi-device sharding, and ``compiled_variants``: the
-port compiles no program per shape, so it sets neither
-``ufa_sweep_compiled_variants`` nor ``ufa_sweep_compile_misses_total``.
+Sharding, as the reference's: over a live ``("scenarios",)`` mesh
+(``mesh=``, a ``launch.mesh.Mesh`` of the ``torch.distributed`` world)
+each rank runs its column block of every chunk (``P(None,
+"scenarios")``) and an ``all_gather`` hands every rank the whole grid's
+verdicts, bit-equal to the one-rank run.  An explicit mesh always
+shards; the default engine takes the world's mesh when a world of more
+than one rank exists and shards only grids of more than one chunk
+(``_shard_for``).  Not ported: ``compiled_variants`` (the port compiles
+no program per shape, so it sets neither ``ufa_sweep_compiled_variants``
+nor ``ufa_sweep_compile_misses_total``).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core.scenarios import (FleetAggregates, analytic_consts,
@@ -109,6 +117,9 @@ class SweepEngine:
                 when there is none)
       analytic_extra  optional kwargs dict forwarded to
                 ``analytic_consts`` (``ao_buffer`` / ``spawn_mult``)
+      mesh      a live ``("scenarios",)`` mesh to shard the chunks'
+                columns over (default: the world's, when it has more
+                than one rank)
     """
 
     def __init__(self, agg: FleetAggregates, timeline: TimelineConfig, *,
@@ -116,7 +127,8 @@ class SweepEngine:
                  ts: Optional[np.ndarray] = None,
                  chunk: int = CHUNK,
                  device=None,
-                 analytic_extra: Optional[Dict] = None):
+                 analytic_extra: Optional[Dict] = None,
+                 mesh=None):
         self.device = resolve_device(device)
         self.consts = {"a": analytic_consts(agg, device=self.device,
                                             **(analytic_extra or {})),
@@ -134,6 +146,23 @@ class SweepEngine:
             # the cascade-storm stage draws from a stream independent of
             # the blackhole draws, derived from the one engine seed
             self.storm_seed = stage_seed(seed, "storm")
+        # an explicit mesh always shards; by default the world's mesh
+        # shards only grids past one chunk (partitioning loses on small
+        # grids, and the thin wrappers must not slow the default down)
+        self._mesh_explicit = mesh is not None
+        if mesh is None and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            from repro_torch.launch.mesh import make_world_mesh
+            mesh = make_world_mesh((dist.get_world_size(),),
+                                   ("scenarios",), device=self.device)
+        self.mesh = mesh
+
+    def _shard_for(self, shape) -> bool:
+        """Shard this run?  An explicit mesh always shards; otherwise
+        only multi-chunk grids (> one CHUNK) amortize the partition."""
+        if self.mesh is None or shape[1] % self.mesh.size:
+            return False
+        return self._mesh_explicit or shape[0] > 1
 
     # ------------------------------------------------------------------
     def _params(self, grid: Dict[str, np.ndarray], n: int, shape) -> Dict:
@@ -238,21 +267,31 @@ class SweepEngine:
             params["storm_broken_frac"] = self._upload(
                 self._chunked(sfrac, shape))
 
+        shard = self._shard_for(shape)
+        cols = slice(None)
+        if shard:
+            wl = shape[1] // self.mesh.size
+            r = self.mesh.index("scenarios")
+            cols = slice(r * wl, (r + 1) * wl)
         chunks = []
         for i in range(shape[0]):
-            p = {k: v[i] for k, v in params.items()}
+            p = {k: v[i, cols] for k, v in params.items()}
             if use_dep:
-                p["dep_broken_frac"] = frac[inv[i]]
-                p["storm_broken_frac"] = frac[storm_inv[i]]
+                p["dep_broken_frac"] = frac[inv[i, cols]]
+                p["storm_broken_frac"] = frac[storm_inv[i, cols]]
             out = _fused_verdicts_block(self.consts, p, self._ts_dev,
                                         temporal, tau)
             if use_dep:
-                out["dep_n_broken_critical"] = counts[inv[i]]
-                out["dep_n_dark"] = n_dark[inv[i]]
+                out["dep_n_broken_critical"] = counts[inv[i, cols]]
+                out["dep_n_dark"] = n_dark[inv[i, cols]]
             chunks.append(out)
 
-        result = {k: torch.cat([c[k] for c in chunks]).cpu().numpy()[:n]
-                  for k in chunks[0]}
+        result = {}
+        for k in chunks[0]:
+            v = torch.stack([c[k] for c in chunks])   # (chunks, width, ...)
+            if shard:
+                v = self._gather_columns(v)
+            result[k] = v.reshape(-1, *v.shape[2:]).cpu().numpy()[:n]
         result.update({k: np.asarray(v) for k, v in grid.items()})
         if meter:
             dt = time.perf_counter() - t0
@@ -265,6 +304,16 @@ class SweepEngine:
             obs.set_gauge("ufa_sweep_padding_waste_ratio",
                           (padded - n) / padded)
         return result
+
+
+    def _gather_columns(self, v: torch.Tensor) -> torch.Tensor:
+        """Every rank's column block of ``v`` (chunks, width / n, ...)
+        joined along the columns (booleans travel as bytes)."""
+        from repro_torch.dist import smap
+        b = v.dtype == torch.bool
+        out = smap.all_gather(v.to(torch.uint8) if b else v, "scenarios",
+                              axis=1, mesh=self.mesh)
+        return out.bool() if b else out
 
 
 def fused_sweep(fs, grid: Optional[Dict[str, np.ndarray]] = None, *,

@@ -7,9 +7,10 @@ batch N is a pure function of (seed, N), so any worker/restart resumes
 exactly — the property UFA's preempt-and-restore path (BBM) relies on: a
 training job revived in burst capacity continues from (checkpoint step + 1)
 with bit-identical data order.  The draws are numpy's, as in the
-reference, so every batch is bit-identical to the reference's.  The port
-runs on one device, so there is no sharding of the batch (ROADMAP Queue A
-item 3).
+reference, so every batch is bit-identical to the reference's.  Under a
+mesh every rank reads the same global batch and the train step keeps its
+block over the data axes (``dist.sharding.train_batch_shardings``), where
+the reference's iterator places the batch with its shardings.
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import cost as _cost
+
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device`` (default: the CUDA card).
@@ -54,15 +56,41 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def kernel_route(who: str, *tensors: torch.Tensor) -> str:
     """``"cpu"`` when every tensor lies on the CPU (the wrapper takes its
     plain version), ``"cuda"`` when all lie on one CUDA device (it
-    launches its kernel); raises for mixed devices or any other device."""
+    launches its kernel), ``"meta"`` for ``meta`` tensors while a
+    ``obs.cost.CostRecorder`` is active (the wrapper runs its checks,
+    returns an empty output and adds its count); raises for mixed
+    devices or any other device, ``meta`` outside a recorder included."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{who}: tensors on different devices "
                          f"{sorted(map(str, devs))}")
     dev = devs.pop()
+    if dev.type == "meta" and _cost.active() is not None:
+        return "meta"
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{who}: no kernel for {dev}")
     return dev.type
+
+
+def record_kernel(who: str, count) -> None:
+    """Add a kernel call's operations and bytes, ``count()``, to the
+    active cost recorder (the CUDA and ``meta`` routes); without one,
+    ``count`` is not called."""
+    rec = _cost.active()
+    if rec is not None:
+        rec.add_kernel(who, *count())
+
+
+def plain_route(who: str, count, fn, *args, **kwargs):
+    """The CPU route: ``fn`` (the plain version); under a cost recorder
+    it runs unseen and the kernel's count, ``count()``, is added instead,
+    so the CPU route counts what the kernel would."""
+    rec = _cost.active()
+    if rec is None:
+        return fn(*args, **kwargs)
+    rec.add_kernel(who, *count())
+    with _cost.plain():
+        return fn(*args, **kwargs)
 
 
 def kernel_dtype(who: str, *tensors: torch.Tensor) -> int:

@@ -169,6 +169,20 @@ def check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
     return dt
 
 
+def cost(q: torch.Tensor, k_cache: torch.Tensor, window):
+    """(operations, bytes) of one call: its bound's counts (PERF.md §6)
+    with every slot of the cache a key, or the window's last ``window``
+    when it is shorter (a count the host can make without reading the
+    length, an upper bound on what the call's data needs)."""
+    B, H, d = q.shape
+    _, K, KV, _ = k_cache.shape
+    w = int(window) if not isinstance(window, torch.Tensor) else 0
+    n = min(K, w) if w > 0 else K
+    size = q.element_size()
+    return (4 * B * H * d * n,
+            2 * n * B * KV * d * k_cache.element_size() + 2 * B * H * d * size)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length,
                      window=0) -> torch.Tensor:
@@ -176,9 +190,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Returns (B, H, d) in q's dtype.  CUDA tensors launch the kernel
     (counted in ``decode_attention.launches``); CPU tensors take the plain
     version."""
-    if backend.kernel_route("decode_attention", q, k_cache, v_cache) == "cpu":
-        return ref_decode_attention(q, k_cache, v_cache, length, window)
+    route = backend.kernel_route("decode_attention", q, k_cache, v_cache)
+    if route == "cpu":
+        return backend.plain_route(
+            "decode_attention", lambda: cost(q, k_cache, window),
+            ref_decode_attention, q, k_cache, v_cache, length, window)
     dt = check_inputs(q, k_cache, v_cache)
+    if route == "meta":
+        backend.record_kernel("decode_attention", lambda: cost(q, k_cache, window))
+        return torch.empty_like(q)
     B, H, d = q.shape
     _, K, KV, _ = k_cache.shape
     # the third values hold any int32 copy made on the card until the
@@ -201,6 +221,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                    part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
                    dt, device=q.device)
     decode_attention.launches += 1
+    backend.record_kernel("decode_attention", lambda: cost(q, k_cache, window))
     return out
 
 

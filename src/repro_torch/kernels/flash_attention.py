@@ -82,14 +82,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         {"causal": causal, "window": window})
 
 
+def attention_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask allows, per (sequence, head)."""
+    w = min(window, S) if window > 0 else S
+    if causal:
+        return w * (w + 1) // 2 + (S - w) * w
+    # not causal: keys k >= q - w + 1, so query q >= w loses q - w + 1
+    return S * S - (S - w) * (S - w + 1) // 2
+
+
+def cost(q: torch.Tensor, causal: bool, window: int):
+    """(operations, bytes) of one call: its bound's counts (PERF.md §6),
+    q, k, v read and out written once, 4 d operations an allowed pair."""
+    B, S, H, d = q.shape
+    return (4 * B * H * d * attention_pairs(S, causal, int(window)),
+            4 * B * S * H * d * q.element_size())
+
+
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool, window: int) -> torch.Tensor:
-    if backend.kernel_route("flash_attention", q, k, v) == "cpu":
-        return ref_flash_attention(q, k, v, causal=causal, window=window)
+    route = backend.kernel_route("flash_attention", q, k, v)
+    if route == "cpu":
+        return backend.plain_route(
+            "flash_attention", lambda: cost(q, causal, window), ref_flash_attention,
+            q, k, v, causal=causal, window=window)
     window = int(window)
     dt = check_inputs(q, k, v, window)
     B, S, H, d = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if route == "meta":
+        backend.record_kernel("flash_attention", lambda: cost(q, causal, window))
+        return out
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
@@ -99,6 +122,7 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    int(bool(causal)), window, 1.0 / math.sqrt(d), dt,
                    device=q.device)
     flash_attention.launches += 1
+    backend.record_kernel("flash_attention", lambda: cost(q, causal, window))
     return out
 
 

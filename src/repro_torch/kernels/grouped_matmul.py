@@ -61,6 +61,15 @@ def grouped_matmul_route(x: torch.Tensor, w: torch.Tensor) -> str:
     return "mma_sync"
 
 
+def cost(x: torch.Tensor, w: torch.Tensor):
+    """(operations, bytes) of one call: its bound's counts (PERF.md §6),
+    x, w read and out written once."""
+    E, C, D = x.shape
+    F = w.shape[2]
+    return (2 * E * C * D * F,
+            (E * C * D + E * D * F + E * C * F) * x.element_size())
+
+
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, D), w (E, D, F), contiguous, both float32 or both
     bfloat16.  CUDA tensors launch the kernel of
@@ -72,8 +81,10 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if backend.kernel_route("grouped_matmul", x, w) == "cpu":
-        return ref_grouped_matmul(x, w)
+    route = backend.kernel_route("grouped_matmul", x, w)
+    if route == "cpu":
+        return backend.plain_route("grouped_matmul", lambda: cost(x, w),
+                                   ref_grouped_matmul, x, w)
     backend.kernel_dtype("grouped_matmul", x, w)
     if x.dim() != 3 or w.dim() != 3 or w.shape[:2] != (x.shape[0],
                                                         x.shape[2]):
@@ -86,12 +97,16 @@ def _grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if max(E, C, D, F) >= 2 ** 31:
         raise ValueError("grouped_matmul: dimensions must fit in int32")
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
+    if route == "meta":
+        backend.record_kernel("grouped_matmul", lambda: cost(x, w))
+        return out
     if out.numel() == 0:
         return out
     route = ROUTES[grouped_matmul_route(x, w)]
     backend.launch("grouped_matmul", _lib(), x.data_ptr(), w.data_ptr(),
                    out.data_ptr(), E, C, D, F, route, device=x.device)
     grouped_matmul.launches += 1
+    backend.record_kernel("grouped_matmul", lambda: cost(x, w))
     return out
 
 

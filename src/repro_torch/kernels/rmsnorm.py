@@ -42,10 +42,21 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                                    {"eps": eps})
 
 
+def cost(x: torch.Tensor, scale: torch.Tensor):
+    """(operations, bytes) of one call: its bound's counts (PERF.md §6),
+    x read and y written once, the scale once."""
+    D = x.shape[-1] if x.dim() else 0
+    rows = x.numel() // D if D else 0
+    return 4 * rows * D, (2 * rows * D * x.element_size()
+                          + D * scale.element_size())
+
+
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
              eps: float) -> torch.Tensor:
-    if backend.kernel_route("rmsnorm", x, scale) == "cpu":
-        return ref_rmsnorm(x, scale, eps)
+    route = backend.kernel_route("rmsnorm", x, scale)
+    if route == "cpu":
+        return backend.plain_route("rmsnorm", lambda: cost(x, scale), ref_rmsnorm,
+                                   x, scale, eps)
     x_dt = backend.kernel_dtype("rmsnorm", x)
     s_dt = backend.kernel_dtype("rmsnorm", scale)
     D = x.shape[-1] if x.dim() else 0
@@ -57,6 +68,9 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError("rmsnorm: x and scale must be contiguous")
     y = torch.empty_like(x)
     rows = x.numel() // D
+    if route == "meta":
+        backend.record_kernel("rmsnorm", lambda: cost(x, scale))
+        return y
     if rows == 0:
         return y
     vec = int(all(t.data_ptr() % 16 == 0 for t in (x, scale, y)))
@@ -64,6 +78,7 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                    y.data_ptr(), rows, D, float(eps), x_dt, s_dt, vec,
                    device=x.device)
     rmsnorm.launches += 1
+    backend.record_kernel("rmsnorm", lambda: cost(x, scale))
     return y
 
 

@@ -89,6 +89,24 @@ def ssd_scan_route(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return "mma"
 
 
+def cost(x: torch.Tensor, b: torch.Tensor, chunk: int):
+    """(operations, bytes) of one call: its bound's counts (PERF.md §6).
+    C B^T over the causal half of each chunk once a group; per head the
+    masked scores times dt*x, the chunk's own state and the carry-in of
+    every chunk but the first; x, b, c, dt, a read, y and the state
+    written once."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    size = x.element_size()
+    tri, nc = chunk * (chunk + 1) // 2, S // chunk
+    cb_flops = B * G * nc * 2 * tri * N
+    head_flops = B * H * (nc * (2 * tri * P + 2 * chunk * N * P)
+                          + max(0, nc - 1) * 2 * chunk * N * P)
+    nbytes = (2 * B * S * H * P * size + 2 * B * S * G * N * size
+              + B * S * H * 4 + H * 4 + B * H * P * N * 4)
+    return cb_flops + head_flops, nbytes
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor,
              chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,8 +125,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor,
               chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    if backend.kernel_route("ssd_scan", x, dt, a, b, c) == "cpu":
-        return ref_ssd_scan(x, dt, a, b, c, chunk)
+    route = backend.kernel_route("ssd_scan", x, dt, a, b, c)
+    if route == "cpu":
+        return backend.plain_route("ssd_scan", lambda: cost(x, b, chunk),
+                                   ref_ssd_scan, x, dt, a, b, c, chunk)
     x_dt, dt_dt = _codes(x, dt, a, b, c)
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
@@ -121,6 +141,9 @@ def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dev = x.device
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    if route == "meta":
+        backend.record_kernel("ssd_scan", lambda: cost(x, b, chunk))
+        return y, state
     if x.numel() == 0 or N == 0:
         return y.zero_(), state.zero_()
     yf = y if x.dtype == torch.float32 else torch.empty(
@@ -139,6 +162,7 @@ def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    y.data_ptr(), yf.data_ptr(), cs.data_ptr(), st.data_ptr(),
                    cb.data_ptr(), state.data_ptr(), device=dev)
     ssd_scan.launches += 1
+    backend.record_kernel("ssd_scan", lambda: cost(x, b, chunk))
     return y, state
 
 

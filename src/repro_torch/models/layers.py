@@ -20,8 +20,10 @@ B8 (``ops.ssd_scan``).  The reference computes its own attention and
 ``ssd_chunked`` instead; ``ssd_chunked`` stays here as the SSD block's
 plain algorithm, and ``_blocked_local_attention`` as a port of the
 reference's blocked sliding-window attention, which B6 replaces.  The
-reference's sharding hints are gone: with no mesh they return their
-input, and ``seq_parallel`` moved only hints.
+reference's sharding hints are gone (``dist.ctx.hint`` returns its
+input; ``seq_parallel`` moved only hints).  Under a mesh a layer sees
+the rank's blocks (``models.model`` gathers the weights); a decode step
+against caches sharded over "kv_seq" takes ``dist.splitkv``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import ctx as dctx
+from repro_torch.dist.splitkv import splitkv_decode_attention
 from repro_torch.kernels import ops
 from repro_torch.kernels.backend import resolve_device
 
@@ -253,9 +257,29 @@ def attention(params: Params, x: torch.Tensor, *, n_heads: int,
         vr = torch.repeat_interleave(v, group, dim=2) if group > 1 else v
         out = ops.flash_attention(q, kr, vr, causal=True, window=window)
     else:
-        # the reference's dist.splitkv branch (a sequence-sharded cache
-        # under shard_map) needs a mesh: ROADMAP Queue A item 3
         start = cache_len.reshape(())
+        mesh = dctx.current_mesh()
+        n_seq = dctx.axis_size("kv_seq")
+        if mesh is not None and n_seq > 1 and S == 1:
+            # split-KV (flash-decode): the caches are the rank's blocks of
+            # the caches sharded over "kv_seq" (decode_state_shardings), so
+            # the reference's max_seq % n_seq == 0 holds by construction;
+            # local write + partial softmax, pmax / psum log-sum-exp merge
+            # (dist.splitkv)
+            seq_axis = dctx.get_rule("kv_seq")
+            if len(kv_cache) == 4:
+                (kq, ks_new), (vq, vs_new) = quantize_kv(k), quantize_kv(v)
+                out, caches = splitkv_decode_attention(
+                    q, kq, vq, kv_cache[0], kv_cache[1], start, window,
+                    mesh=mesh, seq_axis=seq_axis,
+                    k_scale=kv_cache[2], v_scale=kv_cache[3],
+                    new_scales=(ks_new, vs_new))
+            else:
+                out, caches = splitkv_decode_attention(
+                    q, k, v, kv_cache[0], kv_cache[1], start, window,
+                    mesh=mesh, seq_axis=seq_axis)
+            out = out.reshape(B, S, n_heads * d_head)
+            return out @ params["wo"].to(cdt), caches
         if len(kv_cache) == 4:
             k_cache, v_cache, k_scale, v_scale = kv_cache
             for cache, scales, new in ((k_cache, k_scale, k),

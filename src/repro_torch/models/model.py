@@ -27,6 +27,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.dist import ctx as dctx
+from repro_torch.dist import smap
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 
@@ -39,13 +41,21 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class MoEParallel:
     """How to run the MoE layer.
 
-    mode="auto": ``moe_apply_local`` over every expert.  mode="shard_map":
-    the reference's expert-parallel dispatch over ``mesh``; on one device
-    (``mesh=None``) it is ``moe_apply_local`` with ``expert_start=0``, and
-    a mesh of devices raises (ROADMAP Queue A item 3, which also brings
-    the reference's ``model_axis`` and ``fsdp_axes``).
+    mode="auto": ``moe_apply_local`` over every expert; under a live
+    mesh the expert slabs are gathered whole and the tokens gathered over
+    the data axes, so routing and capacity are the global batch's (the
+    reference's global-math dispatch, exact), and each rank keeps its
+    block of the output.  mode="shard_map": the reference's manual
+    expert-parallel dispatch over ``mesh`` — experts sharded over
+    ``model_axis``, expert weights FSDP-sharded over ``fsdp_axes`` and
+    all-gathered per layer, tokens the rank's own (capacity from the
+    local token count), partial outputs psum'd over the model axis; on
+    one rank (``mesh=None`` or a 1 x 1 mesh) it is ``moe_apply_local``
+    with ``expert_start=0``.
     """
     mode: str = "auto"
+    model_axis: str = "model"
+    fsdp_axes: Tuple[str, ...] = ()
     mesh: Any = None
 
 
@@ -280,6 +290,173 @@ def _unstack(params: Params, n: int) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Mesh: each rank holds blocks of the leaves, gathered at use
+# ---------------------------------------------------------------------------
+#
+# Under a ``dist.ctx.sharding_rules`` context the params are the rank's
+# blocks, laid out by ``dist.sharding.param_shardings`` (``dist.smap.put``),
+# or whole, as the context's ``param_layout`` says, and the activations
+# the rank's batch block.  A leaf is gathered whole right before use, over the axes its
+# spec gives each dimension (the gather's backward is a summing
+# reduce-scatter); compute over the "model" axis stays replicated.  A group of one rank skips its
+# collective, so a 1 x 1 mesh is bit-equal to no mesh.
+
+
+def block_spec(t: torch.Tensor, path: Tuple[str, ...], cfg: LMConfig,
+               mesh, stacked: bool = False) -> tuple:
+    """The spec of the rank's block ``t`` of leaf ``path`` (a layer's
+    slice when ``stacked``) under the context's layout
+    (``dist.sharding.leaf_specs``); raises where ``t`` is not that
+    block."""
+    from repro_torch.dist.sharding import leaf_specs
+    spec, gshape = leaf_specs(cfg, mesh, dctx.param_layout())[path]
+    spec = tuple(spec) + (None,) * (len(gshape) - len(spec))
+    if stacked:
+        gshape, spec = gshape[1:], spec[1:]
+    if tuple(t.shape) != smap.local_shape(gshape, spec, mesh):
+        raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)} is not the "
+                         f"rank's block of {gshape} laid out {spec} on "
+                         f"{mesh}")
+    return spec
+
+
+def _gather_leaf(t: torch.Tensor, path: Tuple[str, ...], cfg: LMConfig,
+                 mesh, stacked: bool = False) -> torch.Tensor:
+    return smap.unshard(t, block_spec(t, path, cfg, mesh, stacked), mesh)
+
+
+def _gather_tree(tree: Params, cfg: LMConfig, mesh, path: Tuple[str, ...],
+                 stacked: bool, skip=()) -> Params:
+    out = {}
+    for k, v in tree.items():
+        if k in skip:
+            out[k] = v
+        elif isinstance(v, dict):
+            out[k] = _gather_tree(v, cfg, mesh, path + (k,), stacked)
+        else:
+            out[k] = _gather_leaf(v, path + (k,), cfg, mesh, stacked)
+    return out
+
+
+def _gather_layer(lp: Params, cfg: LMConfig, mesh,
+                  moe_parallel: Optional[MoEParallel]) -> Params:
+    """A layer's leaves, whole, under ``mesh`` (the expert-parallel MoE
+    gathers its own slabs)."""
+    if mesh is None:
+        return lp
+    skip = ("moe",) if cfg.is_moe and _expert_parallel(moe_parallel) else ()
+    return _gather_tree(lp, cfg, mesh, ("layers",), True, skip)
+
+
+def top_leaf(params: Params, cfg: LMConfig, key: str) -> torch.Tensor:
+    """A top-level entry (``embed``, ``lm_head``, the ``final_norm``
+    tree), whole under the context's mesh."""
+    mesh = dctx.current_mesh()
+    t = params[key]
+    if mesh is None:
+        return t
+    if isinstance(t, dict):
+        return _gather_tree(t, cfg, mesh, (key,), False)
+    return _gather_leaf(t, (key,), cfg, mesh)
+
+
+def head_weight(params: Params, cfg: LMConfig) -> torch.Tensor:
+    """The (d_model, vocab) output projection, whole."""
+    return (top_leaf(params, cfg, "embed").T if cfg.tie_embeddings
+            else top_leaf(params, cfg, "lm_head"))
+
+
+def _expert_parallel(par: Optional[MoEParallel]) -> bool:
+    if par is None:
+        return False
+    if par.mode not in ("auto", "shard_map"):
+        raise ValueError(f"MoEParallel.mode {par.mode!r}")
+    return par.mode == "shard_map" and par.mesh is not None
+
+
+def _block_of(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+def _moe_shard_map(mp: Params, x2: torch.Tensor, cfg: LMConfig,
+                   par: MoEParallel):
+    """Expert-parallel MoE on the rank's tokens ``x2`` (T_local, D):
+    experts sharded over the model axis (``e_local = E / n_model`` from
+    ``expert_start = axis_index x e_local``), expert slabs gathered over
+    ``fsdp_axes`` (axis 2 of w_gate / w_up, axis 1 of w_down), capacity
+    from the local token count, the partial outputs psum'd over the model
+    axis and the aux loss pmean'd over every axis.  ``mp`` holds the
+    rank's blocks (``param_shardings``); a layout other than ``par``'s
+    raises."""
+    mesh = par.mesh
+    model_ax = par.model_axis
+    fsdp = tuple(par.fsdp_axes)
+    n_model = mesh.shape[model_ax]
+    if cfg.n_experts % n_model:
+        raise ValueError(f"{cfg.n_experts} experts over {n_model} ranks")
+    e_local = cfg.n_experts // n_model
+    m_idx = smap.axis_index(model_ax, mesh)
+    capacity = moe_capacity(cfg, x2.shape[0])
+
+    def slab(name):
+        """The rank's experts of a slab, whole over d_ff."""
+        w = mp[name]
+        spec = tuple(smap.spec_axes(e) for e in block_spec(
+            w, ("layers", "moe", name), cfg, mesh, True))
+        if (spec[0] != ((model_ax,) if n_model > 1 else ())
+                or any(e not in ((), fsdp) for e in spec[1:])):
+            raise ValueError(f"moe/{name}: laid out {spec}, not experts "
+                             f"over {model_ax!r} and d_ff over {fsdp}")
+        return smap.unshard(w, (None,) + spec[1:], mesh)
+
+    def f(x_l, router, wg, wu, wd, shared):
+        start = m_idx * e_local
+        params = {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd}
+        if shared is not None:
+            # the reference's P(None, model) / P(model, None) blocks of
+            # the whole shared MLP: this rank's d_ff columns
+            params["shared"] = {
+                "w_gate": _block_of(shared["w_gate"], 1, n_model, m_idx),
+                "w_up": _block_of(shared["w_up"], 1, n_model, m_idx),
+                "w_down": _block_of(shared["w_down"], 0, n_model, m_idx)}
+        y, aux = L.moe_apply_local(params, x_l, top_k=cfg.moe_top_k,
+                                   capacity=capacity, n_experts=cfg.n_experts,
+                                   expert_start=start, n_local_experts=e_local)
+        y = smap.psum(y, model_ax)
+        aux = smap.pmean(aux, mesh.axis_names)
+        return y, aux
+
+    shared = mp.get("shared")
+    if shared is not None:
+        shared = _gather_tree(shared, cfg, mesh, ("layers", "moe", "shared"),
+                              True)
+    router = _gather_leaf(mp["router"], ("layers", "moe", "router"), cfg,
+                          mesh, True)
+    return smap.shard_map(f, mesh=mesh)(
+        x2, router, slab("w_gate"), slab("w_up"), slab("w_down"), shared)
+
+
+def _moe_global(mp: Params, hn: torch.Tensor, cfg: LMConfig, mesh):
+    """The auto-mode MoE under a mesh: the tokens gathered over the data
+    axes, routed with the global batch's capacity, the rank's block of
+    the output kept."""
+    from repro_torch.dist.sharding import batch_axes
+    B, S, D = hn.shape
+    x = hn.reshape(B * S, D)
+    data = batch_axes(mesh)
+    n = mesh.group_size(data)
+    if n > 1:
+        x = smap.all_gather(x, data, axis=0, mesh=mesh)
+    y, aux = L.moe_apply_local(mp, x, top_k=cfg.moe_top_k,
+                               capacity=moe_capacity(cfg, x.shape[0]),
+                               n_experts=cfg.n_experts)
+    if n > 1:
+        y = _block_of(y, 0, n, smap.axis_index(data, mesh))
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
@@ -300,23 +477,24 @@ def _ffn(lp: Params, h: torch.Tensor, cfg: LMConfig,
     hn = L.rmsnorm(lp["ln2"], h, cfg.norm_eps)
     if not cfg.is_moe:
         return h + L.mlp(lp["mlp"], hn), None
-    if moe_parallel is not None:
-        if moe_parallel.mode not in ("auto", "shard_map"):
-            raise ValueError(f"MoEParallel.mode {moe_parallel.mode!r}")
-        if moe_parallel.mode == "shard_map" and moe_parallel.mesh is not None:
-            raise NotImplementedError(
-                "expert-parallel MoE over a mesh of devices comes with "
-                "ROADMAP Queue A item 3; on one device pass mesh=None")
     B, S, D = hn.shape
-    y2, aux = L.moe_apply_local(lp["moe"], hn.reshape(B * S, D),
-                                top_k=cfg.moe_top_k, capacity=capacity,
-                                n_experts=cfg.n_experts)
+    mesh = dctx.current_mesh()
+    if _expert_parallel(moe_parallel):
+        y2, aux = _moe_shard_map(lp["moe"], hn.reshape(B * S, D), cfg,
+                                 moe_parallel)
+    elif mesh is not None:
+        y2, aux = _moe_global(lp["moe"], hn, cfg, mesh)
+    else:
+        y2, aux = L.moe_apply_local(lp["moe"], hn.reshape(B * S, D),
+                                    top_k=cfg.moe_top_k, capacity=capacity,
+                                    n_experts=cfg.n_experts)
     return h + y2.reshape(B, S, D), aux
 
 
 def _layer_forward(lp: Params, h: torch.Tensor, cfg: LMConfig, window: int,
                    theta: float, moe_parallel: Optional[MoEParallel],
                    capacity: int):
+    lp = _gather_layer(lp, cfg, dctx.current_mesh(), moe_parallel)
     hn = L.rmsnorm(lp["ln1"], h, cfg.norm_eps)
     if cfg.has_attn and cfg.has_ssm:       # hybrid: parallel attn + ssm heads
         ao = _attend(lp, hn, cfg, window, theta)
@@ -367,7 +545,7 @@ def moe_capacity(cfg: LMConfig, n_tokens: int) -> int:
 def _embed(params: Params, cfg: LMConfig, inputs: torch.Tensor) -> torch.Tensor:
     adt = cfg.adtype
     if cfg.embed_inputs:
-        h = params["embed"].to(adt)[inputs]
+        h = top_leaf(params, cfg, "embed").to(adt)[inputs]
     else:
         h = inputs.to(adt)
     if cfg.embed_scale:
@@ -401,14 +579,13 @@ def forward(params: Params, cfg: LMConfig, inputs: torch.Tensor,
                     else _layer_forward(*args))
         if aux_l is not None:
             aux = aux + aux_l
-    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = L.rmsnorm(top_leaf(params, cfg, "final_norm"), h, cfg.norm_eps)
     return h, aux / cfg.n_layers
 
 
 def logits_fn(params: Params, cfg: LMConfig,
               hidden: torch.Tensor) -> torch.Tensor:
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return hidden @ head.to(hidden.dtype)
+    return hidden @ head_weight(params, cfg).to(hidden.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -484,8 +661,9 @@ def decode_step(params: Params, cfg: LMConfig, state: DecodeState,
     capacity = moe_capacity(cfg, h.shape[0])
     pos = state.length
     convs, ssms = [], []
+    mesh = dctx.current_mesh()
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = _gather_layer(_layer(params["layers"], i), cfg, mesh, None)
         hn = L.rmsnorm(lp["ln1"], h, cfg.norm_eps)
         if cfg.has_attn:
             kv = (state.k_cache[i], state.v_cache[i])
@@ -508,7 +686,7 @@ def decode_step(params: Params, cfg: LMConfig, state: DecodeState,
             h = h + so[:, None, :]
         if cfg.has_ffn:
             h, _ = _ffn(lp, h, cfg, None, capacity)
-    h = L.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    h = L.rmsnorm(top_leaf(params, cfg, "final_norm"), h, cfg.norm_eps)
     logits = logits_fn(params, cfg, h)[:, 0, :]
     conv_state, ssm_state = ((torch.stack(convs), torch.stack(ssms))
                              if cfg.has_ssm else

@@ -75,12 +75,17 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
     return lr
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, leaf_sq=None):
     """``(grads scaled to a global norm of at most max_norm, the norm)``;
-    the norm is summed in float32 over the leaves in tree order."""
+    the norm is summed in float32 over the leaves in tree order.
+    ``leaf_sq(i, s)``, when given, turns leaf ``i``'s sum of squares into
+    the whole leaf's (under a mesh: a sum over the ranks that hold its
+    other blocks)."""
     leaves = _leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                           for g in leaves))
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves]
+    if leaf_sq is not None:
+        sq = [leaf_sq(i, s) for i, s in enumerate(sq)]
+    gnorm = torch.sqrt(sum(sq))
     scale = torch.clamp(torch.full_like(gnorm, max_norm) / (gnorm + 1e-9),
                         max=1.0)
     return _tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
@@ -98,12 +103,14 @@ def adamw_init(params, state_dtype: Optional[str] = None) -> AdamWState:
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1, max_grad_norm: float = 1.0
-                 ) -> Tuple[Any, AdamWState, dict]:
+                 eps=1e-8, weight_decay=0.1, max_grad_norm: float = 1.0,
+                 leaf_sq=None) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step on a tree: returns ``(new params, new state,
-    {"grad_norm", "lr"})``.  No gradient is recorded through it."""
+    {"grad_norm", "lr"})``.  No gradient is recorded through it.
+    ``leaf_sq``: see ``clip_by_global_norm`` (the train step's, under a
+    mesh)."""
     with torch.no_grad():
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm, leaf_sq)
         step = state.step + 1
         stepf = step.to(torch.float32)
         lr_t = (lr(step) if callable(lr)
@@ -142,6 +149,6 @@ def make_optimizer(lr=3e-4, state_dtype: Optional[str] = None,
                    **kw) -> Optimizer:
     return Optimizer(
         init=lambda params: adamw_init(params, state_dtype),
-        update=lambda grads, state, params: adamw_update(
-            grads, state, params, lr=lr, **kw),
+        update=lambda grads, state, params, **k: adamw_update(
+            grads, state, params, lr=lr, **kw, **k),
     )

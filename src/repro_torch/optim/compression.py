@@ -9,8 +9,8 @@ unbiased when paired with stochastic rounding.  The rounding noise comes
 from a ``torch.Generator`` on the tensor's device: the reference's
 ``jax.random`` bits cannot be reproduced, so the port is held to its
 statistical contracts (error within one quantization step, an unbiased
-mean).  The collectives are ``torch.distributed``'s; multi-process runs
-come with ROADMAP Queue A item 3.
+mean).  The collectives are ``torch.distributed``'s, over a process
+group or a mesh axis (``launch.mesh.Mesh``), across real processes.
 """
 
 from __future__ import annotations
@@ -45,10 +45,12 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
     return (q.to(torch.float32) * scale).to(dtype)
 
 
-def compressed_psum_grads(grads: Any, group, generator: torch.Generator
-                          ) -> Any:
+def compressed_psum_grads(grads: Any, group, generator: torch.Generator,
+                          mesh=None) -> Any:
     """int8-compressed gradient mean over the process ``group`` of
-    ``torch.distributed`` (None: the default group): each participant
+    ``torch.distributed`` (None: the default group), or over the mesh
+    axis (or axes) ``group`` names: ``mesh`` given, or the one that
+    ``dist.smap.shard_map`` / ``sharding_rules`` binds.  Each participant
     quantizes, int32-sums, dequantizes with the shared scale.
 
     Bias note: participants use their own scale; summing int8 payloads with
@@ -56,16 +58,24 @@ def compressed_psum_grads(grads: Any, group, generator: torch.Generator
     of the amax first (one tiny scalar collective) so the quantization grid
     is common.
     """
-    n = dist.get_world_size(group)
+    if isinstance(group, (str, tuple)):
+        from repro_torch.dist.smap import _mesh
+        mesh = _mesh(mesh)
+        n = mesh.group_size(group)
+        group = mesh.group(group) if n > 1 else None
+    else:
+        n = dist.get_world_size(group)
     out = []
     for leaf in _leaves(grads):
         x32 = leaf.to(torch.float32)
         amax = torch.max(torch.abs(x32))
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        if n > 1:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
         scale = torch.clamp(amax / 127.0, min=1e-12)
         y = x32 / scale
         q = torch.clamp(torch.round(y + _noise(leaf.shape, generator)),
                         -127, 127).to(torch.int32)
-        dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+        if n > 1:
+            dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
         out.append((q.to(torch.float32) * scale / n).to(leaf.dtype))
     return _unflatten(grads, out)

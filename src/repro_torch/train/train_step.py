@@ -5,11 +5,23 @@ The loss is a cross-entropy computed in sequence chunks, each chunk's
 float32 logits and log-sum-exp under ``torch.utils.checkpoint``, so that
 full (B, S, V) logits are never live: for large vocabularies the logits
 would otherwise dominate device memory.  The reference also hints the
-logits' sharding (``dist.ctx.hint``), an identity on one device, which
-the port drops.  The step runs eagerly (the reference jits it); its
+logits' sharding (``dist.ctx.hint``), which the port drops (each rank
+holds its block).  The step runs eagerly (the reference jits it); its
 gradients flow through the model's kernels by their plain versions'
 gradients (``kernels.backend.with_plain_grad``), and its metrics stay
 on the device: the step reads nothing back to the host.
+
+Under a ``dist.ctx.sharding_rules`` mesh the step is one program per
+rank: the state holds the rank's blocks (``dist.sharding.param_shardings``
+for params and moments), the step takes the global batch and keeps its
+block over the data axes, and the model gathers each leaf at use.  The
+backward of every collective is its transpose, so each rank's
+gradients sum every rank's loss; a leaf gets its reduce-scatter from its
+gather's backward, an ``all_reduce`` sum over the axes it is replicated
+on, and a division by the rank count (the data axes for the mean, the
+model axis because compute is replicated there).  ``grad_norm`` sums
+each leaf's squares over the axes that shard it; the metrics are means
+over the data axes.
 """
 
 from __future__ import annotations
@@ -19,8 +31,11 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.dist import ctx as dctx
+from repro_torch.dist import smap
 from repro_torch.models import (LMConfig, MoEParallel, decode_step, forward,
                                 init_abstract, init_params, logits_fn)
+from repro_torch.models.model import block_spec, head_weight
 from repro_torch.optim import AdamWState, make_optimizer
 from repro_torch.optim.adamw import _leaves, _unflatten
 
@@ -52,7 +67,7 @@ def chunked_ce_loss(params, cfg: LMConfig, hidden: torch.Tensor,
     while S % n_chunks != 0:
         n_chunks -= 1
     c = S // n_chunks
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    head = head_weight(params, cfg)
     remat = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n_chunks):
@@ -81,21 +96,62 @@ def make_train_step(cfg: LMConfig, optimizer=None,
         return loss, {"ce": ce, "aux": aux}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        mesh = dctx.current_mesh()
+        if mesh is not None:
+            from repro_torch.dist.sharding import train_batch_shardings
+            batch = smap.put(batch, train_batch_shardings(cfg, mesh), mesh)
         leaves = [p.detach().requires_grad_()
                   for p in _leaves(state.params)]
         with torch.enable_grad():
             loss, parts = loss_fn(_unflatten(state.params, leaves), batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = _unflatten(state.params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
-        new_params, new_opt, om = optimizer.update(grads, state.opt,
-                                                   state.params)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        kw = {}
+        if mesh is not None:
+            grads, kw["leaf_sq"] = _sync_grads(grads, state.params, cfg,
+                                               mesh)
+        new_params, new_opt, om = optimizer.update(
+            _unflatten(state.params, grads), state.opt, state.params, **kw)
         metrics = {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in parts.items()}, **om}
+                   **{k: v.detach() for k, v in parts.items()}}
+        if mesh is not None:
+            from repro_torch.dist.sharding import batch_axes
+            with torch.no_grad():
+                metrics = {k: smap.pmean(v, batch_axes(mesh), mesh)
+                           for k, v in metrics.items()}
+        metrics.update(om)
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step, optimizer
+
+
+def _paths(tree, path=()):
+    """Leaf paths in ``_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k], path + (k,))]
+    return [path]
+
+
+def _sync_grads(grads, params, cfg: LMConfig, mesh):
+    """Each leaf's gradient block of the mean loss, and the ``leaf_sq``
+    that sums a leaf's squares over the axes that shard it."""
+    out, shard_axes = [], []
+    with torch.no_grad():
+        for g, p, path in zip(grads, _leaves(params), _paths(params)):
+            split = {a for e in block_spec(p, path, cfg, mesh)
+                     for a in smap.spec_axes(e)}
+            rest = tuple(a for a in mesh.axis_names if a not in split)
+            if rest:
+                g = smap.psum(g, rest, mesh)
+            if mesh.size > 1:
+                g = g / mesh.size
+            out.append(g)
+            shard_axes.append(tuple(a for a in mesh.axis_names if a in split))
+
+    def leaf_sq(i, sq):
+        return smap.psum(sq, shard_axes[i], mesh) if shard_axes[i] else sq
+    return out, leaf_sq
 
 
 def make_train_state_abstract(cfg: LMConfig, optimizer=None) -> TrainState:

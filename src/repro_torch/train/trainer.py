@@ -41,8 +41,14 @@ class TrainerReport:
 class Trainer:
     def __init__(self, cfg: LMConfig, train_step: Callable,
                  checkpoint_dir: str, checkpoint_every: int = 50,
-                 straggler_factor: float = 3.0, max_strays: int = 5):
+                 straggler_factor: float = 3.0, max_strays: int = 5,
+                 mesh=None, shardings=None):
         self.cfg = cfg
+        # on a mesh the state is the rank's blocks (laid out by
+        # ``shardings``): a save gathers the whole leaves on every rank
+        # and rank 0 writes them; the stop decision is every rank's
+        self.mesh = mesh
+        self.shardings = shardings
         self.train_step = train_step
         self.ckpt = AsyncCheckpointer(checkpoint_dir)
         self.checkpoint_dir = checkpoint_dir
@@ -50,6 +56,22 @@ class Trainer:
         self.straggler_factor = straggler_factor
         self.max_strays = max_strays
         self._preempt_requested = False
+
+    def _save(self, step: int, state: TrainState) -> None:
+        from repro_torch.checkpoint.checkpoint import whole
+        full = whole(state, self.shardings, self.mesh)
+        if self.mesh is None or self.mesh.rank == 0:
+            self.ckpt.save(step, full)
+
+    def _any(self, flag: bool) -> bool:
+        """``flag`` on any rank of the mesh (every rank stops together)."""
+        if self.mesh is None or not self.mesh.live or self.mesh.size == 1:
+            return flag
+        import torch
+        import torch.distributed as dist
+        t = torch.tensor([int(flag)], device=self.mesh.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
 
     def request_preempt(self):
         """UFA eviction hook: stop at the next step boundary."""
@@ -75,7 +97,7 @@ class Trainer:
         preempted = False
         done = 0
         for step in range(start_step, start_step + n_steps):
-            if self._preempt_requested:
+            if self._any(self._preempt_requested):
                 preempted = True
                 break
             batch = next(batches)
@@ -92,12 +114,12 @@ class Trainer:
                     strays.append((step, dt, ewma))
                 ewma = 0.9 * ewma + 0.1 * dt
             if (step + 1) % self.checkpoint_every == 0:
-                self.ckpt.save(step + 1, state)
-            if len(strays) > self.max_strays:
+                self._save(step + 1, state)
+            if self._any(len(strays) > self.max_strays):
                 # persistent straggler: checkpoint and hand off to the
                 # restore path
                 break
-        self.ckpt.save(start_step + done, state)
+        self._save(start_step + done, state)
         self.ckpt.wait()
         return state, TrainerReport(
             steps_done=done,

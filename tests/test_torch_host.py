@@ -37,6 +37,7 @@ from repro_torch.checkpoint import load_checkpoint  # noqa: E402
 from repro_torch.data import SyntheticLMDataset, make_train_iterator  # noqa: E402
 from repro_torch.models import LMConfig  # noqa: E402
 from repro_torch.train import make_train_state  # noqa: E402
+from repro_torch.launch.mesh import init_world  # noqa: E402
 
 _TINY = LMConfig(name="tiny", n_layers=1, d_model=8, n_heads=1, n_kv_heads=1,
                  d_head=8, d_ff=8, vocab_size=8)
@@ -168,7 +169,13 @@ def test_import_boundary_subprocess():
             "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
             "repro_torch.train", "repro_torch.train.train_step",
             "repro_torch.train.trainer", "repro_torch.launch.train",
-            "repro_torch.optim.compression"} <= set(mods)
+            "repro_torch.optim.compression",
+            "repro_torch.dist", "repro_torch.dist.ctx",
+            "repro_torch.dist.sharding", "repro_torch.dist.smap",
+            "repro_torch.dist.splitkv", "repro_torch.dist.pipeline",
+            "repro_torch.launch.mesh", "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+            "repro_torch.obs.cost"} <= set(mods)
 
 
 def test_import_boundary_source_grep():
@@ -197,7 +204,10 @@ def test_import_boundary_source_grep():
         "data/pipeline.py", "checkpoint/__init__.py",
         "checkpoint/checkpoint.py", "train/__init__.py",
         "train/train_step.py", "train/trainer.py", "launch/train.py",
-        "optim/compression.py")} <= set(files)
+        "optim/compression.py", "dist/__init__.py", "dist/ctx.py",
+        "dist/sharding.py", "dist/smap.py", "dist/splitkv.py",
+        "dist/pipeline.py", "launch/mesh.py", "launch/hlo_analysis.py",
+        "launch/roofline.py", "launch/dryrun.py", "obs/cost.py")} <= set(files)
     # the pattern sees an import inside a function
     assert pat.search("def sync(tree):\n    import jax\n")
 
@@ -235,7 +245,8 @@ def test_device_default_is_cuda_and_never_falls_back(monkeypatch):
                  lambda: next(make_train_iterator(SyntheticLMDataset(
                      vocab_size=8, seq_len=4, global_batch=1))),
                  lambda: make_train_state(_TINY, 0),
-                 lambda: load_checkpoint(ROOT, {})):
+                 lambda: load_checkpoint(ROOT, {}),
+                 lambda: init_world(os.path.join(ROOT, "no-store"), 0, 1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     with pytest.raises(ValueError):

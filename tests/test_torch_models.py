@@ -268,9 +268,14 @@ def test_forward_matches_own_decode(name):
     assert err < DECODE_TOL, err
 
 
-def test_moe_parallel_modes():
-    """shard_map on one device (no mesh) is the local MoE; a mesh of
-    devices and an unknown mode raise."""
+def test_moe_parallel_modes(tmp_path):
+    """shard_map on one device (no mesh) is the local MoE; so is the
+    expert-parallel path over a live 1 x 1 mesh (a world of one rank,
+    every collective skipped), with and without the sharding rules; an
+    unknown mode raises."""
+    import torch.distributed as dist
+    from repro_torch.dist.ctx import sharding_rules
+    from repro_torch.launch.mesh import init_world, make_local_mesh
     _, pp = _params("moe")
     cfg = PORT_CFGS["moe"]
     x = _port(_inputs(cfg, 6))
@@ -278,9 +283,19 @@ def test_moe_parallel_modes():
     for par in (models.MoEParallel(), models.MoEParallel(mode="shard_map")):
         h2, aux2 = models.forward(pp, cfg, x, moe_parallel=par)
         assert torch.equal(h, h2) and torch.equal(aux, aux2)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        models.forward(pp, cfg, x, moe_parallel=models.MoEParallel(
-            mode="shard_map", mesh=object()))
+    init_world(str(tmp_path / "store"), 0, 1, "cpu")
+    try:
+        mesh = make_local_mesh(1, 1, device="cpu")
+        par = models.MoEParallel(mode="shard_map", fsdp_axes=("data",),
+                                 mesh=mesh)
+        h3, aux3 = models.forward(pp, cfg, x, moe_parallel=par)
+        assert torch.equal(h, h3) and torch.equal(aux, aux3)
+        with sharding_rules(mesh):
+            for p in (None, par):
+                h4, aux4 = models.forward(pp, cfg, x, moe_parallel=p)
+                assert torch.equal(h, h4) and torch.equal(aux, aux4)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="mode"):
         models.forward(pp, cfg, x, moe_parallel=models.MoEParallel(mode="x"))
 

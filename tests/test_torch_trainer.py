@@ -18,8 +18,11 @@ CLI on the CPU, beside the reference's ``repro.train.trainer``.
 
 import contextlib
 import io
+import json
 import os
 import re
+import subprocess
+import sys
 import tempfile
 
 import numpy as np
@@ -288,11 +291,44 @@ def test_train_cli_defaults():
     assert "tempfile.gettempdir()" in src
 
 
+def _cli_subprocess(argv):
+    """The CLI as a process (its ranks print from their own processes):
+    its output lines and rank 0's losses."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch.train import main\n"
+            "rep = main(sys.argv[1:])\n"
+            "print('LOSSES', json.dumps(rep.losses))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code, *argv], env=env,
+                         capture_output=True, text=True, timeout=600,
+                         cwd=root)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    return lines[:-1], json.loads(lines[-1].split("LOSSES", 1)[1])
+
+
 @pytest.mark.parametrize("argv", [["--devices", "2"], ["--mesh", "2x1"],
                                   ["--devices", "4", "--mesh", "2x2"]])
-def test_train_cli_refuses_a_mesh(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 3"):
-        train_cli.main([*argv, "--device", "cpu"])
+def test_train_cli_refuses_a_mesh(argv, tmp_path):
+    """These arguments once raised; now each does what the reference's
+    CLI does with them: --devices N trains on N ranks over the mesh
+    (--mesh DxM, default Nx1), --mesh without --devices > 1 stays on one
+    device.  Rank 0's lines are the reference's, and the losses those of
+    one device (2 steps; 1e-5)."""
+    base = ["--steps", "2", "--device", "cpu"]
+    lines, losses = _cli_subprocess(
+        [*argv, *base, "--ckpt-dir", str(tmp_path / "mesh")])
+    devices = int(argv[1]) if argv[0] == "--devices" else 1
+    assert lines[0] == ("arch=qwen3-1.7b cfg=qwen3-1.7b-reduced "
+                        f"params=0.1M devices={devices}")
+    assert re.fullmatch(r"done: 2 steps, loss \S+ -> \S+, stragglers=\d+",
+                        lines[1]), lines
+    assert len(lines) == 2 and latest_step(tmp_path / "mesh") == 2
+    _, one = _cli(["--steps", "2", "--device", "cpu", "--ckpt-dir",
+                   str(tmp_path / "one")])
+    np.testing.assert_allclose(losses, one.losses, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ["internvl2-76b", "musicgen-large"])
