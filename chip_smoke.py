@@ -260,6 +260,43 @@ and last, with the metrics registry on:
      (a), on a quiet host; then the dry run's cells run in six worker
      processes beside the recorder runs and (b).  No kernel is added: the
      meta route launches nothing.
+ 14. The last four configs at their published widths (seed 30), after
+     phase 13: (a) musicgen-large (2 layers, B 1 x S 512), internvl2-76b
+     and command-r-plus-104b (1 layer, S 256) in float32, the card's
+     hidden states and last-position logits against the port's CPU run
+     on the same weights at phase 10a's tolerance (the stub frontends fed
+     seeded embeddings); kimi-k2 (1 layer, all 384 experts, B 1 x S 256)
+     in bf16 on both sides, held to 2x a control measured in the same
+     run (the card's run with B4, B6 and B7 swapped for their plain
+     versions, against the CPU run), expert ids and queue positions
+     compared token by token, any token that differs required to be a
+     near tie (the CPU's router logits of the swapped experts within
+     twice that token's logit drift between the runs), counted, logged
+     and left out of the rows held, with at least 200 of the 256 tokens
+     held and the kernels' swaps at most 2x the control's; (b) the three dense configs' float32
+     2-layer teacher-forced decode against their forward (2e-3 of
+     max|logit|); (c) bf16 at the published widths, the depth cut only
+     where one card forces it: musicgen-large all 48 layers,
+     internvl2-76b 16 of 80, command-r-plus-104b 8 of 64, kimi-k2 1 of
+     61, each init's peak device memory logged and held under the card's
+     memory, the prefill of B 2 x S 4,096 (forward and last-position
+     logits; B6 a layer, B4 twice a layer and once more, kimi-k2's B7
+     three times at 384 experts x capacity 216) and, for the dense three,
+     the decode at B 8 against a 4,352-slot cache (B5 a layer, B4 twice
+     a layer and once more), each counted, every kernel call one that
+     phase 6 holds, timed, profiled (idle share) with peak memory; (d)
+     ``serving.request_campaign`` (the arrival-spike ray, tol 1/4, 3
+     rounds, ``tests/test_torch_serving_campaign.py``'s small spec) on
+     the card, equal ray by ray and probe by probe to the same campaign
+     on the CPU with the card's pool weights copied across, and
+     ``verify_report`` replaying it on the card with no mismatch.  Phase
+     6 holds, drawn after its earlier cases, B5 and B6 at d 8, 24, 80, 96
+     and 192 in both dtypes (B5 at groups 1, 4 and 12, B6 causal and
+     windowed; every multiple of 8 from 8 to 256 runs at the smallest
+     width a route is instantiated for) and every call of (c): B4 at D
+     2,048 / 7,168 / 8,192 / 12,288, B6 at 32 heads of d 64 and 64 and
+     96 of d 128, B5 at groups 1, 8 and 12 against the 4,352-slot cache,
+     B7 at kimi-k2's 384 x 216 x 7,168 <-> 2,048 on the wgmma route.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
@@ -1460,6 +1497,30 @@ def attention_pairs(S: int, causal: bool, window: int) -> int:
     return int((hi - lo).sum())
 
 
+def experts_at_a_time(plain, n: int):
+    """``plain`` on (E, C, D) x (E, D, F) inputs, run over ``n`` experts at
+    a time (experts are independent): the plain B7 widens its weights to
+    float32, 21 GiB for kimi-k2's 384 experts at once."""
+    import torch
+
+    def run(x, w):
+        return torch.cat([plain(x[e:e + n], w[e:e + n])
+                          for e in range(0, x.shape[0], n)])
+    return run
+
+
+def heads_at_a_time(plain, n: int):
+    """``plain`` on (B, S, H, d) inputs, run over ``n`` heads at a time
+    (heads are independent): the same values in less memory."""
+    import torch
+
+    def run(q, k, v, **kw):
+        return torch.cat([plain(q[:, :, h:h + n], k[:, :, h:h + n],
+                                v[:, :, h:h + n], **kw)
+                          for h in range(0, q.shape[2], n)], dim=2)
+    return run
+
+
 def model_cases(torch, device):
     """Phase 6's shapes at the full widths of llama3.2-3b, gemma3-4b,
     qwen3-1.7b and phi3.5-moe.  Each case: the op, a label, the inputs
@@ -1529,9 +1590,13 @@ def model_cases(torch, device):
                 out = F.scaled_dot_product_attention(*args, is_causal=causal)
             return out.transpose(1, 2)
 
+        # the plain version's float32 (B, H, S, S) scores, at most 32
+        # heads at a time (command-r-plus-104b's 96 heads over 4,096
+        # positions would take 12.9 GB a copy)
+        plain = ref.ref_flash_attention if H <= 32 else \
+            heads_at_a_time(ref.ref_flash_attention, 32)
         add("flash_attention", label, (q, k, v),
-            {"causal": causal, "window": window},
-            ref.ref_flash_attention, sdpa,
+            {"causal": causal, "window": window}, plain, sdpa,
             4 * B * S * H * d * q.element_size(),
             4 * B * H * d * attention_pairs(S, causal, window), dt, reps,
             shift=(lambda e, a=(q, k, v), causal=causal, window=window:
@@ -1601,10 +1666,12 @@ def model_cases(torch, device):
     # B7: phi3.5-moe experts, 16 x 640 rows (4,096 tokens x top-2 x
     # capacity 1.25 / 16), d_model 4,096, d_ff 6,400; each case names the
     # route (kernel) its dtype, shape and alignment must take
-    def gmm_case(label, E, C, D, Fo, dt, reps, route):
-        x, w = randn(E, C, D, dtype=dt), randn(E, D, Fo, dtype=dt)
-        add("grouped_matmul", label, (x, w), {}, ref.ref_grouped_matmul,
-            torch.bmm, (E * C * D + E * D * Fo + E * C * Fo)
+    def gmm_case(label, E, C, D, Fo, dt, reps, route, w=None):
+        x = randn(E, C, D, dtype=dt)
+        w = randn(E, D, Fo, dtype=dt) if w is None else w
+        plain = ref.ref_grouped_matmul if E <= 64 else \
+            experts_at_a_time(ref.ref_grouped_matmul, 64)
+        add("grouped_matmul", label, (x, w), {}, plain, torch.bmm, (E * C * D + E * D * Fo + E * C * Fo)
             * x.element_size(), 2 * E * C * D * Fo, dt, reps, route=route)
 
     for args in (
@@ -1866,6 +1933,55 @@ def model_cases(torch, device):
     for B in (1, 2, 3):
         decode_case(f"system story: wave of {B}, d 16, K 48",
                     (B, 4, 2, 16, 48), 9, 0, f32)
+
+    # B5 and B6 across their head-dim domain (every multiple of 8 from 8
+    # to 256, run at the smallest instantiated width), drawn after every
+    # earlier case: d 8, 24, 80, 96 and 192 in both dtypes; B5 at groups
+    # 1, 4 (windowed) and 12 over 2 KV heads, a 1,000-slot cache at length
+    # 777; B6 causal and windowed over S 600 (not a multiple of the tile)
+    for d in (8, 24, 80, 96, 192):
+        for dt in (bf16, f32):
+            for g, window in ((1, 0), (4, 300), (12, 0)):
+                decode_case(f"head dim {d}: group {g}, window {window}",
+                            (4, 2 * g, 2, d, 1000), 777, window, dt)
+            for window in (0, 100):
+                flash_case(f"head dim {d}: causal, window {window}", 1, 600,
+                           4, d, True, window, dt, 5)
+
+    # every call phase 14's bf16 runs make, drawn after every earlier case
+    # (phase 14c checks each call against these cases' signatures): B4
+    # over the prefill's 2 x 4,096 tokens and the decode batch of 8 at the
+    # d_model of musicgen-large (2,048), internvl2-76b (8,192),
+    # command-r-plus-104b (12,288) and kimi-k2 (7,168); B6 at their
+    # prefills (32 heads of d 64; 64 of d 128, internvl2-76b's and
+    # kimi-k2's; 96 of d 128); B5 at B 8 against the 4,352-slot cache at
+    # length 4,097: groups 1 (d 64), 8 and 12 (d 128); B7 at kimi-k2's 384
+    # experts, capacity 216 (2 x 4,096 tokens x top-8 x 1.25 / 384): gate
+    # / up (216 x 7,168 -> 2,048) and down (216 x 2,048 -> 7,168), down's
+    # weights a (384, 2,048, 7,168) view of up's 11.3 GB
+    for label, D in (("musicgen-large", 2048), ("internvl2-76b", 8192),
+                     ("command-r-plus-104b", 12288), ("kimi-k2", 7168)):
+        norm_case(f"{label} hidden norm, prefill", 8192, D, bf16)
+        if label != "kimi-k2":
+            norm_case(f"{label} hidden norm, decode B 8", 8, D, bf16)
+    for args in (("musicgen-large prefill", 2, 4096, 32, 64, True, 0, bf16,
+                  5),
+                 ("internvl2-76b / kimi-k2 prefill", 2, 4096, 64, 128, True,
+                  0, bf16, 5),
+                 ("command-r-plus-104b prefill", 2, 4096, 96, 128, True, 0,
+                  bf16, 5)):
+        flash_case(*args)
+    for label, shape in (("musicgen-large", (8, 32, 32, 64, 4352)),
+                         ("internvl2-76b", (8, 64, 8, 128, 4352)),
+                         ("command-r-plus-104b", (8, 96, 8, 128, 4352))):
+        decode_case(f"{label} decode, 4,352-slot cache (device int32)",
+                    shape, 4097, 0, bf16)
+    E, C, D, Fo = 384, 216, 7168, 2048
+    w_up = randn(E, D, Fo)
+    gmm_case("kimi-k2 expert gate / up, 384 experts, capacity 216", E, C, D,
+             Fo, bf16, 5, "wgmma", w=w_up)
+    gmm_case("kimi-k2 expert down, 384 experts, capacity 216", E, C, Fo, D,
+             bf16, 5, "wgmma", w=w_up.view(E, Fo, D))
     return ops, cases
 
 
@@ -2096,6 +2212,28 @@ def to_device(tree, device):
 
 def host_tokens(cfg, B: int, S: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+
+
+def host_inputs(torch, cfg, B: int, S: int, seed: int):
+    """A model's inputs on the host: token ids, or for a stub frontend
+    (``embed_inputs=False``) standard normal embeddings (B, S, d_model)
+    in the activation dtype, from ``seed``."""
+    if cfg.embed_inputs:
+        return torch.from_numpy(host_tokens(cfg, B, S, seed))
+    x = np.random.default_rng(seed).standard_normal((B, S, cfg.d_model))
+    return torch.from_numpy(x.astype(np.float32)).to(cfg.adtype)
+
+
+def first_layers(params: dict, n: int) -> dict:
+    """The tree with its stacked layers cut to the first ``n`` (views)."""
+    cut = {**params}
+    cut["layers"] = _map_leaves(params["layers"], lambda t: t[:n])
+    return cut
+
+
+def _map_leaves(tree, fn):
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def phase_model(torch, device, card: str) -> dict:
@@ -2891,31 +3029,42 @@ def read_launches(ops) -> dict:
 class RouteRecorder:
     """Inside a ``with`` block, records every MoE layer's expert choices
     and queue positions (as host tensors) by wrapping the layer module's
-    ``moe_routing`` and ``_expert_positions``."""
+    ``moe_routing``, ``_expert_positions`` and ``_expert_positions_big``;
+    with ``logits``, also each layer's router logits (float32, from the
+    router's own input and weights)."""
 
-    def __init__(self, layers):
+    def __init__(self, layers, logits: bool = False):
         self.layers, self.experts, self.positions = layers, [], []
+        self.keep_logits, self.logits = logits, []
 
     def __enter__(self):
         L = self.layers
-        self._saved = (L.moe_routing, L._expert_positions)
-        routing, positions = self._saved
+        self._saved = (L.moe_routing, L._expert_positions,
+                       L._expert_positions_big)
+        routing, positions, positions_big = self._saved
 
-        def rec_routing(*a, **k):
-            out = routing(*a, **k)
+        def rec_routing(router_w, x, *a, **k):
+            out = routing(router_w, x, *a, **k)
             self.experts.append(out[1].cpu())
+            if self.keep_logits:
+                self.logits.append((x.float() @ router_w.float()).cpu())
             return out
 
-        def rec_positions(*a, **k):
-            out = positions(*a, **k)
-            self.positions.append(out.cpu())
-            return out
+        def recorder(fn):
+            def rec(*a, **k):
+                out = fn(*a, **k)
+                self.positions.append(out.cpu())
+                return out
+            return rec
 
-        L.moe_routing, L._expert_positions = rec_routing, rec_positions
+        L.moe_routing = rec_routing
+        L._expert_positions = recorder(positions)
+        L._expert_positions_big = recorder(positions_big)
         return self
 
     def __exit__(self, *exc):
-        self.layers.moe_routing, self.layers._expert_positions = self._saved
+        (self.layers.moe_routing, self.layers._expert_positions,
+         self.layers._expert_positions_big) = self._saved
 
 
 class CallRecorder:
@@ -2958,17 +3107,19 @@ class OpSwap:
 
 
 def hold_card_cpu(torch, device, module: str, n_layers: int, B: int, S: int,
-                  seed: int, card: str) -> dict:
+                  seed: int, card: str, params=None,
+                  phase: str = "10a") -> dict:
     """Phase 10a for one config: the fp32 forward (hidden states and the
     last position's logits) on the card against the port's CPU run on the
-    same weights (one seeded init on the card, copied to the host); for a
-    MoE config also every layer's expert ids and queue positions,
-    exactly."""
+    same weights (one seeded init on the card, or the first ``n_layers``
+    of ``params``, copied to the host); for a MoE config also every
+    layer's expert ids and queue positions, exactly."""
     from repro_torch import models
     from repro_torch.models import layers
     cfg = fp32(module, n_layers)
-    params = models.init_params(cfg, seed, device=device)
-    toks = torch.from_numpy(host_tokens(cfg, B, S, seed))
+    params = (models.init_params(cfg, seed, device=device) if params is None
+              else first_layers(params, n_layers))
+    toks = host_inputs(torch, cfg, B, S, seed)
     with RouteRecorder(layers) as card_routes:
         h, _ = models.forward(params, cfg, toks.to(device))
         last = models.logits_fn(params, cfg, h[:, -1:])
@@ -2979,7 +3130,7 @@ def hold_card_cpu(torch, device, module: str, n_layers: int, B: int, S: int,
         h_cpu, _ = models.forward(cpu_params, cfg, toks)
         last_cpu = models.logits_fn(cpu_params, cfg, h_cpu[:, -1:])
     cpu_s = time.perf_counter() - t0
-    where = f"phase 10a {cfg.name} {n_layers} layers B {B} x S {S}"
+    where = f"phase {phase} {cfg.name} {n_layers} layers B {B} x S {S}"
     errs = {}
     for name, got, want in (("hidden", h, h_cpu), ("logits", last, last_cpu)):
         got = got.cpu()
@@ -3014,8 +3165,9 @@ def hold_card_cpu(torch, device, module: str, n_layers: int, B: int, S: int,
 
 def decode_error(torch, models, params, cfg, toks, full_logits) -> float:
     """Max |teacher-forced decode logits - forward logits| over every
-    step, from a zero float32 state."""
-    B, S = toks.shape
+    step, from a zero float32 state.  ``toks``: (B, S) ids, or (B, S, D)
+    embeddings for a stub frontend."""
+    B, S = toks.shape[:2]
     state = models.init_decode_state(cfg, B, S, torch.float32,
                                      device=toks.device)
     worst = torch.zeros((), device=toks.device)
@@ -3026,19 +3178,21 @@ def decode_error(torch, models, params, cfg, toks, full_logits) -> float:
 
 
 def hold_decode(torch, device, module: str, n_layers: int, B: int, S: int,
-                seed: int, card: str, kv_quant: bool,
-                sync_check: bool) -> dict:
+                seed: int, card: str, kv_quant: bool, sync_check: bool,
+                params=None, phase: str = "10b") -> dict:
     """Phase 10b for one config: the fp32 forward's logits against S
     teacher-forced decode steps on the card (B5 each layer a step),
     within ``DECODE_TOL`` of max|logit|; with ``kv_quant`` the int8-cache
     decode within ``KVQ_REL_TOL`` of it (the reference's own
     ``test_kv_quant_decode_close_to_fp``).  ``sync_check``: one more
     step with any host synchronise an error (the cache write and B5's
-    length stay on the device)."""
+    length stay on the device).  ``params``: the weights to use instead
+    of a seeded init (a stub frontend's inputs are embeddings)."""
     from repro_torch import models
     cfg = fp32(module, n_layers)
-    params = models.init_params(cfg, seed, device=device)
-    toks = torch.from_numpy(host_tokens(cfg, B, S, seed)).to(device)
+    if params is None:
+        params = models.init_params(cfg, seed, device=device)
+    toks = host_inputs(torch, cfg, B, S, seed).to(device)
     full = models.logits_fn(params, cfg, models.forward(params, cfg, toks)[0])
     scale = float(full.abs().max())
     dcfg = dataclasses.replace(cfg, kv_quant=kv_quant)
@@ -3046,7 +3200,7 @@ def hold_decode(torch, device, module: str, n_layers: int, B: int, S: int,
     worst = decode_error(torch, models, params, dcfg, toks, full)
     step_ms = 1e3 * (time.perf_counter() - t0) / S
     tol = KVQ_REL_TOL if kv_quant else DECODE_TOL
-    where = (f"phase 10b {cfg.name}{' kv_quant' if kv_quant else ''} "
+    where = (f"phase {phase} {cfg.name}{' kv_quant' if kv_quant else ''} "
              f"{n_layers} layers B {B} x S {S}")
     check(np.isfinite(worst) and worst <= tol * scale,
           f"{where}: teacher-forced decode differs from the forward by "
@@ -3074,7 +3228,7 @@ def hold_decode(torch, device, module: str, n_layers: int, B: int, S: int,
 
 
 def timed_run(torch, ops, label: str, fn, want: dict, reps: int,
-              card: str, held: set) -> dict:
+              card: str, held: set, phase: str = "10c") -> dict:
     """A counted, timed and profiled bf16 run of ``fn``: the counts
     zeroed just before one call and read just after (held to ``want``),
     every kernel call of that run found among ``held`` (the calls phase
@@ -3091,13 +3245,13 @@ def timed_run(torch, ops, label: str, fn, want: dict, reps: int,
     torch.cuda.synchronize()
     launches = read_launches(ops)
     peak = torch.cuda.max_memory_allocated()
-    check(launches == want, f"phase 10c {label}: launches {launches}, "
+    check(launches == want, f"phase {phase} {label}: launches {launches}, "
           f"want {want}")
     unheld = calls.signatures - held
-    check(not unheld, f"phase 10c {label}: kernel calls that phase 6 does "
-          f"not hold against the plain version: {sorted(unheld)}")
+    check(not unheld, f"phase {phase} {label}: kernel calls that phase 6 "
+          f"does not hold against the plain version: {sorted(unheld)}")
     check(all(bool(torch.isfinite(t).all()) for t in out),
-          f"phase 10c {label}: non-finite outputs")
+          f"phase {phase} {label}: non-finite outputs")
     ms = device_ms(torch, fn, reps=reps, warmup=1)
     stats = {}
     kernels_us = profile_run(label, torch, fn, card, stats)
@@ -3206,6 +3360,11 @@ def phase_models(torch, device, card: str, held: set) -> dict:
 # ---------------------------------------------------------------------------
 
 
+class WindowDone(Exception):
+    """Raised by a ``StepWindow(stop=True)`` hook once its window is
+    traced: the rest of the run is read by nothing."""
+
+
 class StepWindow:
     """The device traced over decode steps ``first`` .. ``first + count
     - 1`` of a serving run (counted over every engine whose step
@@ -3215,9 +3374,10 @@ class StepWindow:
     step to one after its last, scheduler rounds between steps
     included."""
 
-    def __init__(self, torch, first: int, count: int):
+    def __init__(self, torch, first: int, count: int, stop: bool = False):
         from torch.profiler import ProfilerActivity, profile
         self.torch, self.first, self.count, self.n = torch, first, count, 0
+        self.stop = stop
         self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.t0 = self.wall_us = None
 
@@ -3233,6 +3393,8 @@ class StepWindow:
                 self.torch.cuda.synchronize()
                 self.wall_us = 1e6 * (time.perf_counter() - self.t0)
                 self.prof.stop()
+                if self.stop:
+                    raise WindowDone
             return out
         return step
 
@@ -3266,7 +3428,7 @@ def serve_drill(torch, device, card: str, held: set) -> dict:
     every kernel call found among ``held``; the same drill on the port's
     CPU with the card's weights copied across, equal in every field; the
     reference test's SLA contracts; and one more card run traced on the
-    device for the idle share."""
+    device for the idle share, up to the end of its window."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ufa.reduce import timeline_reduce
     from repro_torch.serving import DrillSpec, run_drill
@@ -3318,12 +3480,16 @@ def serve_drill(torch, device, card: str, held: set) -> dict:
           f"{where}: the pre tier's availability trace never fell below "
           f"the SLO")
 
-    window = StepWindow(torch, *DRILL_WINDOW)
+    # the traced run ends with its window (the next drill resets the
+    # engines)
+    window = StepWindow(torch, *DRILL_WINDOW, stop=True)
     saved = {name: e._step for name, e in engines.items()}
     try:
         for e in engines.values():
             e._step = window.hook(e._step)
         run_drill(spec, device)
+    except WindowDone:
+        pass
     finally:
         for name, e in engines.items():
             e._step = saved[name]
@@ -4748,6 +4914,376 @@ def phase_mesh(torch, device, card: str, held: set, agg, tl_cfg, graph,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the last four configs at full width, the request campaign
+# ---------------------------------------------------------------------------
+
+MODEL14_SEED = 30           # phase 14's weights and inputs, one seed a config
+# (a) and (b) for the dense configs, float32, from one init of 2 layers on
+# the card: (module, (a) layers, batch, sequence, (b) batch, sequence).
+# (a) holds the first layers' forward card vs CPU at phase 10a's
+# tolerance, (b) both layers' teacher-forced decode against the forward
+MODEL14_DENSE = (("musicgen_large", 2, 1, 512, 2, 256),
+                 ("internvl2_76b", 1, 1, 256, 1, 128),
+                 ("command_r_plus_104b", 1, 1, 256, 1, 128))
+MODEL14_FP32_LAYERS = 2
+# (c) bf16 at the published widths: (label, module, layers, decode at
+# DECODE_BATCH against cache_seq_len(4,096) slots).  The depth cut only
+# where one card forces it: internvl2-76b 16 of 80 layers (1.71 GB a
+# layer), command-r-plus-104b 8 of 64 (3.15 GB a layer beside 12.6 GB of
+# embeddings and head), kimi-k2 1 of 61 (33.8 GB of expert slabs a layer)
+MODEL14_BF16 = (("musicgen-large", "musicgen_large", 48, True),
+                ("internvl2-76b", "internvl2_76b", 16, True),
+                ("command-r-plus-104b", "command_r_plus_104b", 8, True),
+                ("kimi-k2", "kimi_k2_1t_a32b", 1, False))
+# (a) for kimi-k2 in bf16 on both sides (its float32 layer, 67.6 GB, does
+# not fit beside its embeddings): batch x sequence, and the limit as a
+# multiple of a control measured in the same run (the card's run through
+# the kernels' plain versions against the CPU run)
+KIMI_CARD_CPU = (1, 256)
+KIMI_CONTROL_MARGIN = 2.0
+# the rows that (a) must hold for kimi-k2: near ties leave the held rows,
+# so a fault before the router, which raises the drift that excuses a
+# swap, must not empty them.  At least this many of the 256 tokens held
+# (233 on an H100 80GB HBM3 at 700 W), and the kernels' swapped tokens at
+# most KIMI_CONTROL_MARGIN times the control's (17 against 16 there)
+KIMI_MIN_HELD = 200
+# the request campaign's small spec (tests/test_torch_serving_campaign.py)
+CAMPAIGN_SPEC = {"horizon_s": 7200.0, "n_steps": 48, "ticks_per_step": 4,
+                 "crit_rps": 0.03, "pre_rps": 0.02, "max_new_tokens": 2,
+                 "seed": 11}
+
+
+def bf16_launches(cfg) -> dict:
+    """The model kernels one bf16 prefill of ``cfg`` launches: B6 a layer,
+    B7 three times a MoE layer, B4 twice a layer and once more."""
+    n = cfg.n_layers
+    return {**dict.fromkeys(KERNEL_PREFIX, 0), "flash_attention": n,
+            "grouped_matmul": 3 * n if cfg.is_moe else 0,
+            "rmsnorm": 2 * n + 1}
+
+
+def dense_holds(torch, device, module: str, seed: int, card: str) -> dict:
+    """Phase 14a and 14b for a dense config: float32 weights of
+    ``MODEL14_FP32_LAYERS`` layers drawn once on the card; (b) their
+    teacher-forced decode against their forward, then (a) the forward of
+    the first layers card vs CPU."""
+    from repro_torch import models
+    _, n_a, B_a, S_a, B_b, S_b = next(r for r in MODEL14_DENSE
+                                      if r[0] == module)
+    cfg = fp32(module, MODEL14_FP32_LAYERS)
+    params = models.init_params(cfg, seed, device=device)
+    out = {"decode_vs_forward": hold_decode(
+        torch, device, module, MODEL14_FP32_LAYERS, B_b, S_b, seed, card,
+        False, False, params=params, phase="14b")}
+    out["card_vs_cpu"] = hold_card_cpu(torch, device, module, n_a, B_a, S_a,
+                                       seed, card, params=params,
+                                       phase="14a")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def routes_against(r, ref, capacity: int, where: str) -> tuple:
+    """Rows (tokens) of a one-layer MoE run whose expert ids and kept
+    slots (queue position below ``capacity``) equal the reference run's
+    (a row's output depends on nothing else of the routing), and the
+    near ties that differ: a token whose ids differ must be one where the
+    CPU's router logits of the swapped experts lie within twice the
+    token's own logit difference between the runs (a swap its input's
+    rounding explains).  Ids equal everywhere must give equal positions;
+    after a swap, the positions it shifts in the two experts' queues are
+    counted."""
+    import torch
+    ids, ids_r = r.experts[0], ref.experts[0]
+    pos, pos_r = r.positions[0], ref.positions[0]
+    swapped = (ids != ids_r).any(dim=1)
+    if not bool(swapped.any()):
+        check(torch.equal(pos, pos_r), f"{where}: equal expert ids, "
+              f"positions differ")
+    gaps = []
+    for t in swapped.nonzero().flatten().tolist():
+        lc = ref.logits[0][t]
+        drift = float((r.logits[0][t] - lc).abs().max())
+        for j in (ids[t] != ids_r[t]).nonzero().flatten().tolist():
+            gap = abs(float(lc[ids[t, j]] - lc[ids_r[t, j]]))
+            check(gap <= 2 * drift, f"{where}: token {t} slot {j} takes "
+                  f"expert {int(ids[t, j])} for {int(ids_r[t, j])}, a "
+                  f"logit gap {gap:.3g} beyond twice its drift {drift:.3g}"
+                  f" (not a near tie)")
+            gaps.append(gap)
+    same = ~swapped & ((pos < capacity) == (pos_r < capacity)).all(dim=1)
+    return same, {"tokens": int(ids.shape[0]),
+                  "swapped_tokens": int(swapped.sum()),
+                  "near_tie_gaps": gaps,
+                  "positions_shifted": int((~swapped & (pos != pos_r)
+                                            .any(dim=1)).sum()),
+                  "rows_held": int(same.sum())}
+
+
+def kimi_hold(torch, device, params, cfg, seed: int, card: str) -> dict:
+    """Phase 14a for kimi-k2 (bf16, one layer of 384 experts): the
+    forward's hidden states and last-position logits on the card against
+    the port's CPU run on the same weights, held to KIMI_CONTROL_MARGIN
+    times a control measured here: the card's run with B4, B6 and B7
+    swapped for their plain versions, against the same CPU run.  Expert
+    ids and queue positions are compared token by token; a token that
+    differs must be a near tie (``routes_against``), is counted and
+    logged, and leaves the rows held."""
+    from repro_torch import models
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    B, S = KIMI_CARD_CPU
+    x = host_inputs(torch, cfg, B, S, seed)
+    where = f"phase 14a {cfg.name} bf16 {cfg.n_layers} layer B {B} x S {S}"
+
+    def run(p, inputs):
+        with RouteRecorder(layers, logits=True) as rr:
+            h, _ = models.forward(p, cfg, inputs)
+            last = models.logits_fn(p, cfg, h[:, -1:])
+        return h.float().cpu().reshape(B * S, -1), last.float().cpu(), rr
+
+    h_k, last_k, r_k = run(params, x.to(device))
+    with OpSwap(ops, "rmsnorm", ref.ref_rmsnorm), \
+            OpSwap(ops, "flash_attention", ref.ref_flash_attention), \
+            OpSwap(ops, "grouped_matmul",
+                   experts_at_a_time(ref.ref_grouped_matmul, 64)):
+        h_p, last_p, r_p = run(params, x.to(device))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    h_c, last_c, r_c = run(to_cpu(params), x)
+    cpu_s = time.perf_counter() - t0
+    capacity = models.moe_capacity(cfg, B * S)
+    same_k, routes_k = routes_against(r_k, r_c, capacity,
+                                      f"{where} (kernels)")
+    same_p, routes_p = routes_against(r_p, r_c, capacity,
+                                      f"{where} (control)")
+    rows = same_k & same_p
+    lasts = rows.reshape(B, S)[:, -1]
+    check(int(rows.sum()) >= KIMI_MIN_HELD and bool(lasts.all()),
+          f"{where}: {int(rows.sum())} of {B * S} tokens held (at least "
+          f"{KIMI_MIN_HELD} and every last position wanted)")
+    check(routes_k["swapped_tokens"]
+          <= KIMI_CONTROL_MARGIN * max(routes_p["swapped_tokens"], 1),
+          f"{where}: the kernels swap {routes_k['swapped_tokens']} tokens' "
+          f"experts, over {KIMI_CONTROL_MARGIN} x the control's "
+          f"{routes_p['swapped_tokens']}")
+    errs = {}
+    for name, got, ctl, want, keep in (("hidden", h_k, h_p, h_c, rows),
+                                       ("logits", last_k[:, 0], last_p[:, 0],
+                                        last_c[:, 0], lasts)):
+        check(bool(torch.isfinite(got).all()), f"{where}: {name} non-finite")
+        err = float((got[keep] - want[keep]).abs().max())
+        control = float((ctl[keep] - want[keep]).abs().max())
+        limit = KIMI_CONTROL_MARGIN * control
+        errs[name] = {"max_abs_err": err, "control": control,
+                      "limit": limit, "max_abs": float(want.abs().max())}
+        check(err <= limit, f"{where}: {name} differs from the CPU run by "
+              f"{err:.3g}, over {KIMI_CONTROL_MARGIN} x the control "
+              f"{control:.3g} (B4, B6, B7 swapped for their plain versions)")
+    log(f"{where} ok: bf16 forward card == CPU within "
+        f"{KIMI_CONTROL_MARGIN} x the measured control (hidden "
+        f"{errs['hidden']['max_abs_err']:.3g} against control "
+        f"{errs['hidden']['control']:.3g}; last-position logits "
+        f"{errs['logits']['max_abs_err']:.3g} against "
+        f"{errs['logits']['control']:.3g}); expert ids and positions: "
+        f"kernels {routes_k['swapped_tokens']} near-tie tokens swapped "
+        f"(largest logit gap {max(routes_k['near_tie_gaps'], default=0):.3g},"
+        f" {routes_k['positions_shifted']} tokens' queue positions shifted), "
+        f"control {routes_p['swapped_tokens']} (largest gap "
+        f"{max(routes_p['near_tie_gaps'], default=0):.3g}, "
+        f"{routes_p['positions_shifted']} shifted); {int(rows.sum())} of "
+        f"{B * S} tokens held (ids and kept slots equal in both runs); CPU "
+        f"run {cpu_s:.2f} s [{card}]")
+    return {"config": cfg.name, "layers": cfg.n_layers, "batch": B,
+            "seq": S, "errors": errs, "routes_kernels": routes_k,
+            "routes_control": routes_p, "rows_held": int(rows.sum()),
+            "cpu_s": cpu_s}
+
+
+def bf16_runs(torch, device, label: str, module: str, n_layers: int,
+              decode: bool, seed: int, card: str, held: set) -> tuple:
+    """Phase 14c for one config: its bf16 weights at ``n_layers`` drawn on
+    the card (the init's peak device memory logged), the prefill of
+    PREFILL_SHAPE and, with ``decode``, the decode at DECODE_BATCH against
+    a 4,352-slot cache from length 4,096, each counted, timed and
+    profiled with every kernel call among ``held``.  Returns the rows and
+    the weights (for kimi-k2's 14a)."""
+    from repro_torch import models
+    from repro_torch.configs.base import cache_seq_len
+    from repro_torch.kernels import ops
+    cfg = arch_config(module, n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed, device=device)
+    torch.cuda.synchronize()
+    init = {"s": time.perf_counter() - t0,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "held_bytes": torch.cuda.memory_allocated(),
+            "card_bytes": torch.cuda.get_device_properties(device)
+            .total_memory}
+    check(init["peak_bytes"] < init["card_bytes"], f"phase 14c {label}: "
+          f"init peak over the card")
+    published = arch_config(module).n_layers
+    cut = "depth cut to fit one card" if n_layers < published else "no cut"
+    log(f"phase 14c {label}: {cfg.name} bf16 {n_layers} of {published} "
+        f"layers ({cut}), widths as published; init {init['s']:.2f} s, "
+        f"peak device memory {init['peak_bytes'] / 2**30:.3f} GiB, weights "
+        f"{init['held_bytes'] / 2**30:.3f} GiB of "
+        f"{init['card_bytes'] / 2**30:.3f} GiB [{card}]")
+    B, S = PREFILL_SHAPE
+    x = host_inputs(torch, cfg, B, S, seed).to(device)
+    if cfg.is_moe:
+        cap = models.moe_capacity(cfg, B * S)
+        check(cap == 216, f"phase 14c {label}: capacity {cap}")
+
+    def prefill():
+        h, _ = models.forward(params, cfg, x)
+        return h, models.logits_fn(params, cfg, h[:, -1:])
+
+    row = timed_run(torch, ops, f"{label} prefill", prefill,
+                    bf16_launches(cfg), 3, card, held, phase="14c")
+    row.update(config=cfg.name, layers=n_layers, batch=B, seq=S,
+               tokens_per_s=B * S / (row["ms"] / 1e3), init=init)
+    log(f"phase 14c {label} prefill: {cfg.name} bf16 {n_layers} layers, "
+        f"B {B} x S {S} (forward + last-position logits) {row['ms']:.3f} ms"
+        f" = {row['tokens_per_s']:.1f} tokens/s; peak device memory "
+        f"{row['peak_bytes'] / 2**30:.3f} GiB; idle share "
+        f"{row['idle_share']}; launches {row['launches']} [{card}]")
+    rows = {f"{label} prefill": row}
+    del x
+    if decode:
+        Bd = DECODE_BATCH
+        state = models.init_decode_state(cfg, Bd, cache_seq_len(S),
+                                         device=device, length=S)
+        tok = host_inputs(torch, cfg, Bd, 1, seed)[:, 0].to(device)
+        box = [state]
+
+        def step():
+            lg, box[0] = models.decode_step(params, cfg, box[0], tok)
+            return (lg,)
+
+        step()
+        drow = timed_run(torch, ops, f"{label} decode", step,
+                         {**dict.fromkeys(KERNEL_PREFIX, 0),
+                          "decode_attention": n_layers,
+                          "rmsnorm": 2 * n_layers + 1}, 8, card, held,
+                         phase="14c")
+        drow.update(config=cfg.name, layers=n_layers, batch=Bd,
+                    cache_slots=cache_seq_len(S), length=S,
+                    tokens_per_s=Bd / (drow["ms"] / 1e3))
+        log(f"phase 14c {label} decode: B {Bd} against {cache_seq_len(S)} "
+            f"cache slots from length {S}: {drow['ms']:.3f} ms a step "
+            f"({drow['tokens_per_s']:.1f} tokens/s); peak device memory "
+            f"{drow['peak_bytes'] / 2**30:.3f} GiB; idle share "
+            f"{drow['idle_share']}; launches {drow['launches']} [{card}]")
+        rows[f"{label} decode"] = drow
+        del state, box
+    return rows, params, cfg
+
+
+def _campaign(spec, dev):
+    """14d's campaign (the arrival-spike ray, tol 1/4, 3 rounds) over
+    ``spec``'s drills on ``dev``: its report and seconds."""
+    from repro_torch.chaos.campaign import Ray
+    from repro_torch.serving import request_campaign
+    t0 = time.perf_counter()
+    rep = request_campaign(
+        spec, rays=(Ray("arrival_spike", {"arrival_spike": 1.0}),),
+        tol=1.0 / 4.0, max_rounds=3, device=dev).run()
+    return rep, time.perf_counter() - t0
+
+
+def _cpu_campaign(weights: str) -> tuple:
+    """14d's campaign on the CPU, in a worker process beside the card's,
+    its drills on the card's pool weights (saved at ``weights``)."""
+    import torch
+    torch.set_num_threads(2)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.serving import DrillSpec, workload
+    spec = DrillSpec(**CAMPAIGN_SPEC)
+    params = torch.load(weights)
+    for e in workload.pool_for(spec, "cpu")[0].values():
+        e.params = params
+    return _campaign(spec, "cpu")
+
+
+def phase_campaign(torch, device, card: str) -> dict:
+    """Phase 14d: the request campaign (``serving.request_campaign``, the
+    arrival-spike ray, tol 1/4, 3 rounds) over CAMPAIGN_SPEC's drills on
+    the card, against the same campaign on the port's CPU with the card's
+    pool weights copied across (run in a worker process at the same
+    time; ray by ray: status, bracket, frontier severity and knobs,
+    counterexample, every probe), and ``verify_report`` replaying it on
+    the card through a fresh oracle with no mismatch."""
+    import multiprocessing as mp
+    from repro_torch.chaos import verify_report
+    from repro_torch.serving import DrillSpec, drill_oracle, workload
+    spec = DrillSpec(**CAMPAIGN_SPEC)
+    where = "phase 14d request campaign"
+    engines, _ = workload.pool_for(spec, device)
+    weights = os.path.join(ROOT, "build", "phase14d_pool.pt")
+    os.makedirs(os.path.dirname(weights), exist_ok=True)
+    torch.save(to_cpu(next(iter(engines.values())).params), weights)
+    pool = mp.get_context("spawn").Pool(1)
+    try:
+        on_cpu = pool.apply_async(_cpu_campaign, (weights,))
+        rep, card_s = _campaign(spec, device)
+        t0 = time.perf_counter()
+        replay = verify_report(rep, oracle=drill_oracle(spec, device))
+        replay_s = time.perf_counter() - t0
+        rep_cpu, cpu_s = on_cpu.get(timeout=900)
+    finally:
+        pool.close()
+        pool.join()
+        os.remove(weights)
+    same_report(rep, rep_cpu, where)
+    for g, w in zip(rep.rays, rep_cpu.rays):
+        check(g.frontier_knobs() == w.frontier_knobs(),
+              f"{where}: ray {w.name} frontier knobs differ")
+    ray = rep.ray("arrival_spike")
+    check(rep.op_ok and ray.status == "localized",
+          f"{where}: {ray.status}, op_ok {rep.op_ok}")
+    check(replay["n_probes"] == rep.n_evals and not replay["mismatches"],
+          f"{where}: verify_report on the card: {replay}")
+    log(f"{where} ok: card == CPU (status {ray.status}, frontier severity "
+        f"{ray.frontier_severity}, knobs {ray.frontier_knobs()}, "
+        f"counterexample {ray.counterexample}, {rep.n_evals} probes); "
+        f"verify_report on the card replays {replay['n_probes']} probes "
+        f"with no mismatch; card {card_s:.2f} s, CPU {cpu_s:.2f} s (a "
+        f"worker process, beside the card's), replay {replay_s:.2f} s "
+        f"[{card}]")
+    return {"status": ray.status, "frontier_severity": ray.frontier_severity,
+            "n_evals": rep.n_evals, "card_s": card_s, "cpu_s": cpu_s,
+            "replay_s": replay_s}
+
+
+def phase_last_configs(torch, device, card: str, held: set) -> dict:
+    """Phase 14: musicgen-large, internvl2-76b, command-r-plus-104b and
+    kimi-k2 at their published widths through ``repro_torch.models``: (a)
+    card vs CPU, (b) decode vs forward, (c) bf16 timed runs, then (d) the
+    request campaign on the card."""
+    out = {"holds": {}, "timed": {}}
+    seed = MODEL14_SEED
+    for label, module, n_layers, decode in MODEL14_BF16:
+        seed += 1
+        if not arch_config(module).is_moe:
+            out["holds"][label] = dense_holds(torch, device, module, seed,
+                                              card)
+        rows, params, cfg = bf16_runs(torch, device, label, module,
+                                      n_layers, decode, seed, card, held)
+        out["timed"].update(rows)
+        if cfg.is_moe:
+            out["holds"][label] = kimi_hold(torch, device, params, cfg, seed,
+                                            card)
+        del params
+        torch.cuda.empty_cache()
+    out["campaign"] = phase_campaign(torch, device, card)
+    return out
+
+
 def main_grid(n: int) -> dict:
     from repro_torch.core.scenarios import scenario_grid
     from repro_torch.core.sweep_engine import tile_grid
@@ -5100,6 +5636,28 @@ def main() -> int:
     log(f"phase 13 ok: {time.perf_counter() - t0:.2f} s, "
         + json.dumps({"shares": meshed["shares"],
                       "probe": meshed["probe"]}) + f" [{card}]")
+
+    # phase 14: musicgen-large, internvl2-76b, command-r-plus-104b and
+    # kimi-k2 at their published widths (card vs CPU, decode vs forward,
+    # bf16 timed runs), the request campaign on the card; B4-B7 counted
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    last = phase_last_configs(torch, device, card,
+                              set().union(*(e["held"] for e in k_model)))
+    log(f"phase 14 ok: {time.perf_counter() - t0:.2f} s, "
+        + json.dumps({k: {m: r[m] for m in ("ms", "tokens_per_s",
+                                             "peak_bytes", "idle_share",
+                                             "launches")}
+                      for k, r in last["timed"].items()}) + f" [{card}]")
+    for name, newest in (("rmsnorm", "kimi-k2 prefill"),
+                         ("flash_attention", "kimi-k2 prefill"),
+                         ("grouped_matmul", "kimi-k2 prefill"),
+                         ("decode_attention", "command-r-plus-104b decode")):
+        by_name[name]["launches_by_path"].update(
+            {f"{label} (phase 14c)": row["launches"][name]
+             for label, row in last["timed"].items()
+             if row["launches"][name]})
+        by_name[name]["launches"] = last["timed"][newest]["launches"][name]
 
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",

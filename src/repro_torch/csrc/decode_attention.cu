@@ -13,6 +13,16 @@
 // passes 0-d int32 tensors (no host synchronisation, as the TPU kernel's
 // scalar prefetch), or taken by value from Python ints.
 //
+// Head dims: any d that is a multiple of 8 from 8 to 256 on both routes
+// (the reference's kernel makes each block the full head dim, so it takes
+// any d).  Each route is instantiated for a few widths DH, and a call runs
+// the smallest DH >= d (float32: 8, 16, 32, 64, 128, 256; bf16: 64, 128,
+// 256) with the columns past d zero: loads past d are not issued (float32)
+// or zero-filled by TMA (bf16), and Q's columns past d are zero, so Q K^T
+// is the sum over d alone.  Output columns past d are never stored, and
+// the partials' rows are d wide.  The padded columns cost their share of
+// the work (d 80 runs DH 128): a known cost, not optimised.
+//
 // What bounds it: bytes.  Every valid K and V row is read once: at
 // llama3.2-3b (B 8, KV 8, d 128, bf16, length 6,000) that is 197 MB,
 // 0.059 ms at 3.35 TB/s, against 1.2 flops per byte.
@@ -46,12 +56,14 @@
 //    (n_sub = ceil(g / 16) sub-groups, balanced), its rows zero-padded
 //    to 16 in shared memory.
 //  - One producer warp keeps a ring of K and V tiles full by TMA under
-//    mbarriers: a BK x d tile of one KV head comes in as d / 64 boxes of
+//    mbarriers: a BK x DH tile of one KV head comes in as DH / 64 boxes of
 //    BK x 64 through a 4-D tensor map over the cache, dims (d, KV, K, B)
-//    with the tensor's own byte strides, under the 128-byte swizzle; TMA
-//    zero-fills positions past K.  STAGES x 2 tiles are in flight a block
-//    (96 KB at d 128, two blocks an SM): the ring's depth, not the
-//    register file, sets the bytes in flight.
+//    with the tensor's own byte strides (a multiple of 16 bytes: d % 8 ==
+//    0), under the 128-byte swizzle; TMA zero-fills positions past K and
+//    columns past d.  A box that lies wholly past d is not loaded: its
+//    stages are zeroed once when the block starts.  STAGES x 2 tiles are
+//    in flight a block (96 KB at d 128, two blocks an SM): the ring's
+//    depth, not the register file, sets the bytes in flight.
 //  - Four consumer warps take 16 positions each of every tile.  S = Q K^T
 //    on mma.sync m16n8k16: Q's A fragments stay in registers for d <= 128
 //    (re-read by ldmatrix from shared memory at d 256, where the 16 x 256
@@ -145,7 +157,8 @@ decode_partial_kernel(const float* __restrict__ q,
                       const float* __restrict__ kc,
                       const float* __restrict__ vc, long long kb, long long kp,
                       long long kn, long long vb, long long vp, long long vn,
-                      int H, int K, int g, int gsz, int n_sub, int nsplit,
+                      int H, int K, int d, int g, int gsz, int n_sub,
+                      int nsplit,
                       const int* len_dev, int len_host, const int* win_dev,
                       int win_host, float scale, float* __restrict__ part_acc,
                       float* __restrict__ part_ml) {
@@ -156,6 +169,8 @@ decode_partial_kernel(const float* __restrict__ q,
   const int h0 = n * g + sub * gsz, gs = min(gsz, g - sub * gsz);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPR, col = (lane % LPR) * EPL;
+  const bool live = col < d;       // EPL divides d: a lane's columns are
+                                   // all below d or all past it
   const int vg = warp * NG + grp;  // the lane group's index in the block
   const Range r = split_range(len_dev ? *len_dev : len_host,
                               win_dev ? *win_dev : win_host, K, sp, nsplit);
@@ -168,8 +183,8 @@ decode_partial_kernel(const float* __restrict__ q,
     l[j] = 0.f;
 #pragma unroll
     for (int t = 0; t < EPL; ++t) acc[j][t] = qf[j][t] = 0.f;
-    if (j < gs) {
-      load_f<EPL>(q + ((long long)b * H + h0 + j) * DH + col, qf[j]);
+    if (j < gs && live) {
+      load_f<EPL>(q + ((long long)b * H + h0 + j) * d + col, qf[j]);
 #pragma unroll
       for (int t = 0; t < EPL; ++t) qf[j][t] *= scale;
     }
@@ -185,7 +200,7 @@ decode_partial_kernel(const float* __restrict__ q,
     float kr[U][EPL], vr[U][EPL];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (p0 + u < hi) {
+      if (p0 + u < hi && live) {
         load_f<EPL>(kbase + (long long)(p0 + u) * kp, kr[u]);
         load_f<EPL>(vbase + (long long)(p0 + u) * vp, vr[u]);
       } else {
@@ -239,8 +254,8 @@ decode_partial_kernel(const float* __restrict__ q,
     for (int t = 0; t < EPL; ++t) sm_acc[vg][j][col + t] = acc[j][t];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < gs * DH; idx += NW * 32) {
-    const int j = idx / DH, c = idx % DH;
+  for (int idx = threadIdx.x; idx < gs * d; idx += NW * 32) {
+    const int j = idx / d, c = idx % d;
     float M = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NV; ++w) M = fmaxf(M, sm_m[w][j]);
@@ -252,7 +267,7 @@ decode_partial_kernel(const float* __restrict__ q,
       A += sm_acc[w][j][c] * f;
     }
     const long long head = ((long long)b * H + h0 + j) * nsplit + sp;
-    part_acc[head * DH + c] = A;
+    part_acc[head * d + c] = A;
     if (c == 0) {
       part_ml[head * 2] = M;
       part_ml[head * 2 + 1] = L;
@@ -290,8 +305,9 @@ template <int DH>
 __global__ void __launch_bounds__(NT, Cfg<DH>::MINB)
 decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
                    __grid_constant__ const CUtensorMap tv,
-                   const bf16* __restrict__ q, int H, int K, int g, int gsz,
-                   int n_sub, int nsplit, const int* len_dev, int len_host,
+                   const bf16* __restrict__ q, int H, int K, int d, int g,
+                   int gsz, int n_sub, int nsplit, const int* len_dev,
+                   int len_host,
                    const int* win_dev, int win_host, float scale_log2,
                    float* __restrict__ part_acc, float* __restrict__ part_ml) {
   using C = Cfg<DH>;
@@ -315,10 +331,10 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
   const long long row0 = ((long long)b * H + h0) * nsplit + sp;
 
   if (n_tiles <= 0) {  // no tile: an empty partial, the ring untouched
-    for (int idx = threadIdx.x; idx < gs * DH; idx += NT) {
-      const int j = idx / DH, c = idx % DH;
+    for (int idx = threadIdx.x; idx < gs * d; idx += NT) {
+      const int j = idx / d, c = idx % d;
       const long long row = row0 + (long long)j * nsplit;
-      part_acc[row * DH + c] = 0.f;
+      part_acc[row * d + c] = 0.f;
       if (c == 0) {
         part_ml[row * 2] = NEG_INF;
         part_ml[row * 2 + 1] = 0.f;
@@ -327,14 +343,24 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
     return;
   }
 
-  // the sub-group's query rows, zero-padded to 16
+  // the sub-group's query rows, zero-padded to 16 rows and to DH columns
   for (int idx = threadIdx.x; idx < MMA_G * DH / 8; idx += NT) {
     const int j = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (j < gs)
+    if (j < gs && c < d)
       v = *reinterpret_cast<const uint4*>(q + ((long long)b * H + h0 + j) *
-                                                  DH + c);
+                                                  d + c);
     *reinterpret_cast<uint4*>(&qs[j][c]) = v;
+  }
+  // the boxes that TMA loads (those holding a column below d); the rest of
+  // every stage is zeroed here once (its K and V must be finite: 0 x NaN)
+  const int nb_live = (d + 63) / 64;
+  for (int idx = threadIdx.x; idx < C::STAGES * 2 * (C::NB - nb_live) *
+                                        (C::BOX / 16); idx += NT) {
+    const int per_tile = (C::NB - nb_live) * (C::BOX / 16);
+    const int tile = idx / per_tile, off = idx % per_tile;
+    *reinterpret_cast<uint4*>(ring + tile * C::TILE + nb_live * C::BOX +
+                              off * 16) = make_uint4(0, 0, 0, 0);
   }
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
@@ -363,10 +389,9 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
         mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
         uint8_t* kt = ring + s * 2 * C::TILE;
         uint8_t* vt = kt + C::TILE;
-        mbar_arrive_expect_tx(&full[s], 2 * C::TILE);
+        mbar_arrive_expect_tx(&full[s], 2 * nb_live * C::BOX);
         const int p = (r.t_begin + i) * BK;
-#pragma unroll
-        for (int x = 0; x < C::NB; ++x) {
+        for (int x = 0; x < nb_live; ++x) {
           tma_load_4d(kt + x * C::BOX, &tk, &full[s], 64 * x, n, p, b);
           tma_load_4d(vt + x * C::BOX, &tv, &full[s], 64 * x, n, p, b);
         }
@@ -522,8 +547,8 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < gs * DH; idx += NT) {
-    const int j = idx / DH, c = idx % DH;
+  for (int idx = threadIdx.x; idx < gs * d; idx += NT) {
+    const int j = idx / d, c = idx % d;
     float M = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NCW; ++w) M = fmaxf(M, red_m[w * MMA_G + j]);
@@ -535,7 +560,7 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
       A += red[(w * MMA_G + j) * C::RP + c] * f;
     }
     const long long row = row0 + (long long)j * nsplit;
-    part_acc[row * DH + c] = A;
+    part_acc[row * d + c] = A;
     if (c == 0) {
       part_ml[row * 2] = M;  // base-2 units
       part_ml[row * 2 + 1] = L;
@@ -583,30 +608,30 @@ static cudaError_t launch_f32(const void* q, const void* k, const void* v,
                               const int* len_dev, int len_host,
                               const int* win_dev, int win_host, float scale,
                               float* part_acc, float* part_ml, void* out,
-                              cudaStream_t st) {
+                              int d, cudaStream_t st) {
   const int g = H / KV;
   int n_sub, gsz;
   sub_groups(g, FMA_G, &n_sub, &gsz);
   const dim3 grid(nsplit, KV * n_sub, B);
   decode_partial_kernel<DH, G><<<grid, NW * 32, 0, st>>>(
       (const float*)q, (const float*)k, (const float*)v, ks[0], ks[1], ks[2],
-      vs[0], vs[1], vs[2], H, K, g, gsz, n_sub, nsplit, len_dev, len_host,
+      vs[0], vs[1], vs[2], H, K, d, g, gsz, n_sub, nsplit, len_dev, len_host,
       win_dev, win_host, scale, part_acc, part_ml);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<float, false><<<B * H, DH, 0, st>>>(
-      part_acc, part_ml, (float*)out, nsplit, DH);
+  decode_combine_kernel<float, false><<<B * H, d, 0, st>>>(
+      part_acc, part_ml, (float*)out, nsplit, d);
   return cudaGetLastError();
 }
 
-// a cache (B, K, KV, DH) with element strides {batch, position, head} as
-// the 4-D map (DH, KV, K, B), read in boxes of 64 x 1 x BK x 1
-template <int DH>
+// a cache (B, K, KV, d) with element strides {batch, position, head} as
+// the 4-D map (d, KV, K, B), read in boxes of 64 x 1 x BK x 1 (zero-filled
+// past d and K)
 static int encode_cache(CUtensorMap* map, const void* base, int B, int K,
-                        int KV, const long long* strides) {
+                        int KV, int d, const long long* strides) {
   if (strides[0] < 0 || strides[1] < 0 || strides[2] < 0)
     return (int)cudaErrorInvalidValue;
-  const uint64_t dims[4] = {(uint64_t)DH, (uint64_t)KV, (uint64_t)K,
+  const uint64_t dims[4] = {(uint64_t)d, (uint64_t)KV, (uint64_t)K,
                             (uint64_t)B};
   const uint64_t bytes[3] = {(uint64_t)strides[2] * 2,
                              (uint64_t)strides[1] * 2,
@@ -629,25 +654,25 @@ static cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                                const int* len_dev, int len_host,
                                const int* win_dev, int win_host, float scale,
                                float* part_acc, float* part_ml, void* out,
-                               cudaStream_t st) {
+                               int d, cudaStream_t st) {
   const int g = H / KV;
   int n_sub, gsz;
   sub_groups(g, MMA_G, &n_sub, &gsz);
   CUtensorMap tk, tv;
-  int rc = encode_cache<DH>(&tk, k, B, K, KV, ks);
-  if (rc == 0) rc = encode_cache<DH>(&tv, v, B, K, KV, vs);
+  int rc = encode_cache(&tk, k, B, K, KV, d, ks);
+  if (rc == 0) rc = encode_cache(&tv, v, B, K, KV, d, vs);
   if (rc != 0) return (cudaError_t)rc;
   cudaError_t err = set_smem_bf16<DH>();
   if (err != cudaSuccess) return err;
   const dim3 grid(nsplit, KV * n_sub, B);
   decode_bf16_kernel<DH><<<grid, NT, Cfg<DH>::SMEM, st>>>(
-      tk, tv, (const bf16*)q, H, K, g, gsz, n_sub, nsplit, len_dev, len_host,
-      win_dev, win_host, (float)(scale * 1.4426950408889634), part_acc,
-      part_ml);
+      tk, tv, (const bf16*)q, H, K, d, g, gsz, n_sub, nsplit, len_dev,
+      len_host, win_dev, win_host, (float)(scale * 1.4426950408889634),
+      part_acc, part_ml);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<bf16, true><<<B * H, DH, 0, st>>>(
-      part_acc, part_ml, (bf16*)out, nsplit, DH);
+  decode_combine_kernel<bf16, true><<<B * H, d, 0, st>>>(
+      part_acc, part_ml, (bf16*)out, nsplit, d);
   return cudaGetLastError();
 }
 
@@ -657,6 +682,15 @@ static int f32_tier(int g) {
   int n_sub, gsz;
   sub_groups(g, FMA_G, &n_sub, &gsz);
   return gsz <= 1 ? 1 : gsz <= 2 ? 2 : gsz <= 4 ? 4 : 8;
+}
+
+// the width a head dim d (a multiple of 8 in 8..256) runs at: the
+// smallest instantiated DH >= d of dtype dt's route; 0 outside the domain
+static int padded_dh(int d, int dt) {
+  if (d < 8 || d > 256 || d % 8 != 0) return 0;
+  if (dt == DT_BF16) return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  return d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64
+       : d <= 128 ? 128 : 256;
 }
 
 // How many blocks of the kernel a call with head size dh, group g and
@@ -674,7 +708,7 @@ extern "C" int decode_attention_blocks_per_sm(int dh, int g, int dt,
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
         blocks, decode_bf16_kernel<D>, NT, Cfg<D>::SMEM);                   \
   }
-    switch (dh) {
+    switch (padded_dh(dh, dt)) {
       case 64: DEC_OCC(64);
       case 128: DEC_OCC(128);
       case 256: DEC_OCC(256);
@@ -691,7 +725,7 @@ extern "C" int decode_attention_blocks_per_sm(int dh, int g, int dt,
     case 4: DEC_OCC(D, 4);            \
     default: DEC_OCC(D, 8);           \
   }
-    switch (dh) {
+    switch (padded_dh(dh, dt)) {
       case 8: DEC_OCC_G(8);
       case 16: DEC_OCC_G(16);
       case 32: DEC_OCC_G(32);
@@ -709,10 +743,10 @@ extern "C" int decode_attention_blocks_per_sm(int dh, int g, int dt,
 // element strides {kb, kp, kn} / {vb, vp, vn} = {batch, position, head};
 // out (B, H, dh).  part_acc: B * H * nsplit * dh floats, part_ml:
 // B * H * nsplit * 2.  len_dev / win_dev: device int32 or NULL (then
-// len_host / win_host).  Any group H / KV.  dt picks the route: DT_BF16
-// the TMA ring on mma.sync, dh in {64, 128, 256} (16-byte aligned caches
-// with byte strides that are multiples of 16), DT_F32 scalar FMAs, dh in
-// {8, 16, 32, 64, 128, 256}.
+// len_host / win_host).  Any group H / KV.  dh a multiple of 8 from 8 to
+// 256 (run at padded_dh).  dt picks the route: DT_BF16 the TMA ring on
+// mma.sync (16-byte aligned caches with byte strides that are multiples
+// of 16), DT_F32 scalar FMAs.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, long long kb, long long kp,
     long long kn, long long vb, long long vp, long long vn, int B, int H,
@@ -727,9 +761,9 @@ extern "C" int decode_attention_launch(
   cudaStream_t st = (cudaStream_t)stream;
 #define DEC_ARGS                                                            \
   q, k, v, ks, vs, B, H, KV, K, nsplit, len_dev, len_host, win_dev,         \
-      win_host, scale, part_acc, part_ml, out, st
+      win_host, scale, part_acc, part_ml, out, dh, st
   if (dt == DT_BF16) {
-    switch (dh) {
+    switch (padded_dh(dh, dt)) {
       case 64: return (int)launch_bf16<64>(DEC_ARGS);
       case 128: return (int)launch_bf16<128>(DEC_ARGS);
       case 256: return (int)launch_bf16<256>(DEC_ARGS);
@@ -742,7 +776,7 @@ extern "C" int decode_attention_launch(
     case 4: return (int)launch_f32<D, 4>(DEC_ARGS);                         \
     default: return (int)launch_f32<D, 8>(DEC_ARGS);                        \
   }
-    switch (dh) {
+    switch (padded_dh(dh, dt)) {
       case 8: DEC_F32(8);
       case 16: DEC_F32(16);
       case 32: DEC_F32(32);

@@ -10,7 +10,15 @@
 //
 // out in q's dtype (round to nearest even for bf16).  The inputs are read
 // through their strides, so the model layout (B, S, H, d) is never
-// transposed.  Key tiles that the causal or window mask covers wholly are
+// transposed.  Any head dim d that is a multiple of 8 from 8 to 256 (the
+// reference's kernel makes each block the full head dim, so it takes any
+// d): each route is instantiated for a few widths DH and a call runs the
+// smallest DH >= d, with the columns past d zero in shared memory (loads
+// past d are not issued, or are zero-filled), so Q K^T is the sum over d
+// alone; the output columns past d are computed as zeros and never
+// stored, and the scale is the caller's 1 / sqrt(d).  The padded columns
+// cost their share of the work (d 80 runs DH 128): a known cost, not
+// optimised.  Key tiles that the causal or window mask covers wholly are
 // not visited, as _flash_kernel skips them (:41-47).
 //
 // What bounds it: operations.  At llama3.2-3b's prefill (B 2, S 4,096,
@@ -63,8 +71,9 @@
 // cannot each own a column: 16 / d threads share one, each summing every
 // (16 / d)-th key of the tile into its own accumulator (all rescaled by
 // the same alpha), and the epilogue adds the slices with __shfl_xor_sync
-// inside the warp before one of them stores the row.  d 8 and 16 are
-// float32 only: the bf16 kernel's k16 fragments need d >= 32.
+// inside the warp before one of them stores the row.  Widths DH 8, 16,
+// 32, 64, 128 and 256.  The bf16 kernel's k16 fragments and its tiling
+// need DH >= 32, so there d 8-24 run at DH 32.
 //
 // Next (a later B6 step): wgmma on a warpgroup with K and V brought by
 // TMA into an mbarrier ring, P fed to wgmma from registers, a producer
@@ -96,15 +105,17 @@ __device__ __forceinline__ bool allowed(int qp, int kp, int S, int causal,
 }
 
 // rows [r0, r0 + R) of a (B, S, H, d) tensor at (b, h) into dst[R][P],
-// widened to float and multiplied by mul; rows past S are zeros
+// widened to float and multiplied by mul; rows past S and columns past d
+// (d a multiple of 4 and at most DH) are zeros
 template <typename T, int DH, int R, int P>
 __device__ __forceinline__ void load_tile(float (*dst)[P], const T* src,
-                                          long long ss, int r0, int S,
+                                          long long ss, int r0, int S, int d,
                                           float mul) {
   for (int idx = threadIdx.x; idx < R * DH / 4; idx += NT) {
     const int r = idx / (DH / 4), c = (idx % (DH / 4)) * 4;
     float t[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + r < S) load_f<4>(src + (long long)(r0 + r) * ss + c, t);
+    if (r0 + r < S && c < d)
+      load_f<4>(src + (long long)(r0 + r) * ss + c, t);
 #pragma unroll
     for (int i = 0; i < 4; ++i) dst[r][c + i] = t[i] * mul;
   }
@@ -114,7 +125,7 @@ template <typename T, int DH, int BKT>
 __global__ void __launch_bounds__(NT)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, const Strides st,
-             int S, int causal, int window, float scale) {
+             int S, int d, int causal, int window, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DH, BKT>& sm = *reinterpret_cast<Smem<DH, BKT>*>(smem_raw);
   // heaviest causal tiles first
@@ -126,7 +137,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vp = v + b * st.v[6] + h * st.v[8];
   T* op = o + b * st.v[9] + h * st.v[11];
 
-  load_tile<T, DH, BQ, DH + 1>(sm.q, qp, st.v[1], q0, S, scale);
+  load_tile<T, DH, BQ, DH + 1>(sm.q, qp, st.v[1], q0, S, d, scale);
   if (tid < BQ) {
     sm.m[tid] = NEG_INF;
     sm.l[tid] = 0.f;
@@ -148,8 +159,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int k0 = (k_begin / BKT) * BKT; k0 < k_end; k0 += BKT) {
     __syncthreads();  // the previous tile's K, V, P are consumed
-    load_tile<T, DH, BKT, DH + 1>(sm.k, kp, st.v[4], k0, S, 1.f);
-    load_tile<T, DH, BKT, DH>(sm.v, vp, st.v[7], k0, S, 1.f);
+    load_tile<T, DH, BKT, DH + 1>(sm.k, kp, st.v[4], k0, S, d, 1.f);
+    load_tile<T, DH, BKT, DH>(sm.v, vp, st.v[7], k0, S, d, 1.f);
     __syncthreads();
 
     // S = Q K^T: rows ty + 16 i, keys tx + 16 j
@@ -249,7 +260,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = op + (long long)(q0 + r) * st.v[10];
 #pragma unroll
     for (int j = 0; j < CW; ++j)
-      orow[col + 16 * j] = from_f<T>(acc[i][j] / denom);
+      if (col + 16 * j < d)
+        orow[col + 16 * j] = from_f<T>(acc[i][j] / denom);
   }
 }
 
@@ -271,18 +283,21 @@ struct SmemT {
 };
 
 // rows [r0, r0 + R) of a (B, S, H, d) bf16 tensor at (b, h) into dst[R][P]
-// by cp.async (not yet committed); rows past S are zero-filled
+// by cp.async (not yet committed); rows past S and 16-byte chunks past d
+// (a multiple of 8, at most DH) are zero-filled
 template <int DH, int R, int P>
 __device__ __forceinline__ void copy_tile(bf16 (*dst)[P], const bf16* src,
-                                          long long ss, int r0, int S) {
+                                          long long ss, int r0, int S,
+                                          int d) {
   constexpr int CH = DH / 8;  // 16-byte chunks a row
   static_assert(R * CH % TB == 0, "tile must split evenly over the block");
 #pragma unroll
   for (int i = 0; i < R * CH / TB; ++i) {
     const int idx = threadIdx.x + i * TB;
     const int r = idx / CH, c = (idx % CH) * 8;
-    const bool in = r0 + r < S;
-    cp_async_16(&dst[r][c], src + (long long)(in ? r0 + r : 0) * ss + c, in);
+    const bool in = r0 + r < S && c < d;
+    cp_async_16(&dst[r][c], in ? src + (long long)(r0 + r) * ss + c : src,
+                in);
   }
 }
 
@@ -290,7 +305,7 @@ template <int DH, int BKT>
 __global__ void __launch_bounds__(TB)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
-                  const Strides st, int S, int causal, int window,
+                  const Strides st, int S, int d, int causal, int window,
                   float scale_log2) {
   using Sm = SmemT<DH, BKT>;
   constexpr int P = Sm::P;
@@ -315,9 +330,9 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kt0 = (k_begin / BKT) * BKT;
   const int n_tiles = (k_end - kt0 + BKT - 1) / BKT;
 
-  copy_tile<DH, TQ, P>(sm.q, qp, st.v[1], q0, S);
-  copy_tile<DH, BKT, P>(sm.k[0], kp, st.v[4], kt0, S);
-  copy_tile<DH, BKT, P>(sm.v[0], vp, st.v[7], kt0, S);
+  copy_tile<DH, TQ, P>(sm.q, qp, st.v[1], q0, S, d);
+  copy_tile<DH, BKT, P>(sm.k[0], kp, st.v[4], kt0, S, d);
+  copy_tile<DH, BKT, P>(sm.v[0], vp, st.v[7], kt0, S, d);
   cp_async_commit();
 
   // this warp's rows: wq0 .. wq0 + 15; this thread's rows r_lo, r_lo + 8
@@ -342,8 +357,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = kt0 + t * BKT, stage = t & 1;
     if (t + 1 < n_tiles) {
-      copy_tile<DH, BKT, P>(sm.k[stage ^ 1], kp, st.v[4], k0 + BKT, S);
-      copy_tile<DH, BKT, P>(sm.v[stage ^ 1], vp, st.v[7], k0 + BKT, S);
+      copy_tile<DH, BKT, P>(sm.k[stage ^ 1], kp, st.v[4], k0 + BKT, S, d);
+      copy_tile<DH, BKT, P>(sm.v[stage ^ 1], vp, st.v[7], k0 + BKT, S, d);
     }
     cp_async_commit();
     cp_async_wait<1>();  // every group but the newest: tile t has landed
@@ -476,7 +491,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 16 * (DH / 8) / 32; ++i) {
     const int idx = lane + 32 * i;
     const int r = idx / (DH / 8), c = (idx % (DH / 8)) * 8;
-    if (wq0 + r < S)
+    if (wq0 + r < S && c < d)
       *reinterpret_cast<uint4*>(op + (long long)(wq0 + r) * st.v[10] + c) =
           *reinterpret_cast<const uint4*>(&stage_o[r][c]);
   }
@@ -485,8 +500,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DH, int BKT>
 static cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                                void* o, const Strides& strides, int B, int S,
-                               int H, int causal, int window, float scale,
-                               cudaStream_t st) {
+                               int H, int d, int causal, int window,
+                               float scale, cudaStream_t st) {
   const size_t bytes = sizeof(SmemT<DH, BKT>);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16_kernel<DH, BKT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -495,7 +510,7 @@ static cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const dim3 grid((S + TQ - 1) / TQ, H, B);
   flash_bf16_kernel<DH, BKT><<<grid, TB, bytes, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, strides, S,
-      causal, window, (float)(scale * 1.4426950408889634));
+      d, causal, window, (float)(scale * 1.4426950408889634));
   return cudaGetLastError();
 }
 
@@ -506,7 +521,7 @@ static cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 template <typename T, int DH, int BKT>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           void* o, const Strides& strides, int B, int S,
-                          int H, int causal, int window, float scale,
+                          int H, int d, int causal, int window, float scale,
                           cudaStream_t st) {
   const size_t bytes = sizeof(Smem<DH, BKT>);
   cudaError_t err = cudaFuncSetAttribute(
@@ -515,49 +530,47 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_kernel<T, DH, BKT><<<grid, NT, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, strides, S, causal,
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, strides, S, d, causal,
       window, scale);
   return cudaGetLastError();
 }
 
 // q, k, v, o: (B, S, H, dh) with unit stride on dh; strides: a host
 // array of 12 int64, the {batch, seq, head} element strides of q, k, v and
-// o in that order.  dh in {8, 16, 32, 64, 128, 256} for float32 and in
-// {32, 64, 128, 256} for bf16.
+// o in that order.  dh a multiple of 8 from 8 to 256, run at the smallest
+// instantiated width DH >= dh: 8, 16, 32, 64, 128, 256 for float32 and 32,
+// 64, 128, 256 for bf16.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
                                       const long long* strides, int B, int S,
                                       int H, int dh, int causal, int window,
                                       float scale, int dt, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535)
+  if (B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535 || dh < 8 ||
+      dh > 256 || dh % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Strides sv;
   for (int i = 0; i < 12; ++i) sv.v[i] = strides[i];
 #define FA_CASE(TT, D, BKT)                                                 \
-  return (int)launch<TT, D, BKT>(q, k, v, o, sv, B, S, H, causal,            \
+  return (int)launch<TT, D, BKT>(q, k, v, o, sv, B, S, H, dh, causal,        \
                                  window, scale, st)
-  if (dt == DT_F32) {
-    switch (dh) {
-      case 8: FA_CASE(float, 8, 64);
-      case 16: FA_CASE(float, 16, 64);
-      case 32: FA_CASE(float, 32, 64);
-      case 64: FA_CASE(float, 64, 64);
-      case 128: FA_CASE(float, 128, 64);
-      case 256: FA_CASE(float, 256, 32);
-    }
-  } else if (dt == DT_BF16) {
 #define FA_BF16(D, BKT)                                                     \
-  return (int)launch_bf16<D, BKT>(q, k, v, o, sv, B, S, H, causal, window,   \
-                                  scale, st)
-    switch (dh) {
-      case 32: FA_BF16(32, 64);
-      case 64: FA_BF16(64, 64);
-      case 128: FA_BF16(128, 64);
-      case 256: FA_BF16(256, 32);
-    }
-#undef FA_BF16
+  return (int)launch_bf16<D, BKT>(q, k, v, o, sv, B, S, H, dh, causal,       \
+                                  window, scale, st)
+  if (dt == DT_F32) {
+    if (dh <= 8) FA_CASE(float, 8, 64);
+    if (dh <= 16) FA_CASE(float, 16, 64);
+    if (dh <= 32) FA_CASE(float, 32, 64);
+    if (dh <= 64) FA_CASE(float, 64, 64);
+    if (dh <= 128) FA_CASE(float, 128, 64);
+    FA_CASE(float, 256, 32);
+  } else if (dt == DT_BF16) {
+    if (dh <= 32) FA_BF16(32, 64);
+    if (dh <= 64) FA_BF16(64, 64);
+    if (dh <= 128) FA_BF16(128, 64);
+    FA_BF16(256, 32);
   }
+#undef FA_BF16
 #undef FA_CASE
   return (int)cudaErrorInvalidValue;
 }

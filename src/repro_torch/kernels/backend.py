@@ -52,6 +52,20 @@ SMEM_OPTIN = 232_448
 # dtype codes of the model kernels' C entry points (csrc/common.cuh)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the head dims the attention kernels (B5, B6) take on every route: a
+# multiple of 8 from 8 to 256, as the reference's kernels take any d
+HEAD_DIM_DOMAIN = range(8, 257, 8)
+
+
+def padded_head_dim(d: int, widths, who: str) -> int:
+    """The width a call with head dim ``d`` runs at: the smallest of the
+    route's instantiated ``widths`` that is >= d, the columns past d zero
+    (csrc ``padded_dh``).  Outside ``HEAD_DIM_DOMAIN`` it raises."""
+    if d not in HEAD_DIM_DOMAIN:
+        raise ValueError(f"{who}: the kernel takes d in 8, 16, ..., 256 "
+                         f"(a multiple of 8), got d={d}")
+    return next(w for w in widths if w >= d)
+
 
 def kernel_route(who: str, *tensors: torch.Tensor) -> str:
     """``"cpu"`` when every tensor lies on the CPU (the wrapper takes its

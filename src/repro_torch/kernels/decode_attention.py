@@ -13,9 +13,11 @@ no ``.item()``, no host synchronisation.  The kernel
 (``csrc/decode_attention.cu``: split-K partials and a log-sum-exp
 combine) says what bounds it and how its design answers that.  Two
 routes, by dtype (``decode_attention_route``): ``mma`` for bfloat16 (a
-TMA ring and the GQA group on ``mma.sync``, d in 64, 128, 256), ``fma``
-for float32 (scalar IEEE FMAs, d in 8, 16, 32, 64, 128, 256: the small
-head dims of the reduced configs and the serving drill's model).
+TMA ring and the GQA group on ``mma.sync``), ``fma`` for float32 (scalar
+IEEE FMAs).  Both take every head dim in ``backend.HEAD_DIM_DOMAIN`` (a
+multiple of 8 from 8 to 256, as the reference's kernel takes any d), run
+at the smallest of the route's ``WIDTHS`` (``backend.padded_head_dim``)
+with the columns past d zero.
 ``decode_attention`` launches the kernel for CUDA tensors and takes
 ``ref.ref_decode_attention`` for CPU tensors.
 """
@@ -31,9 +33,9 @@ import torch
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_decode_attention
 
-# head dims each route's kernel is instantiated for: the bf16 ring's TMA
-# boxes are 64 elements wide
-HEAD_DIMS = {"mma": (64, 128, 256), "fma": (8, 16, 32, 64, 128, 256)}
+# the widths each route's kernel is instantiated for (a call runs the
+# smallest one >= d; the bf16 ring's TMA boxes are 64 elements wide)
+WIDTHS = {"mma": (64, 128, 256), "fma": (8, 16, 32, 64, 128, 256)}
 BLOCK_K = 64                       # cache positions a tile (csrc BK)
 SUB_GROUP = {"mma": 16, "fma": 8}  # query heads a block, at most
 
@@ -154,13 +156,8 @@ def check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.shape[0] != B or dk != d or KV < 1 or H % KV:
         raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} "
                          f"do not fit q {tuple(q.shape)}")
-    route = decode_attention_route(q)
-    if d not in HEAD_DIMS[route]:
-        raise ValueError(
-            f"decode_attention: the {route} route ({q.dtype}) takes d in "
-            f"{HEAD_DIMS[route]}, got d={d}"
-            + ("; a bfloat16 cache below d 64 is an open gap (ROADMAP.md, "
-               "measured gaps)" if route == "mma" and d < 64 else ""))
+    backend.padded_head_dim(d, WIDTHS[decode_attention_route(q)],
+                            "decode_attention")
     if not (q.is_contiguous() and backend.rows_aligned(q)
             and backend.rows_aligned(k_cache)
             and backend.rows_aligned(v_cache)):

@@ -8,11 +8,14 @@ H heads, read through their strides (no transposed copies); online
 softmax in float32; causal and sliding-window masks, with key tiles that
 the mask covers wholly skipped.  The kernel (``csrc/flash_attention.cu``)
 says what bounds it and how its design answers that.  Two routes by
-dtype (``flash_attention_route``): ``"mma"`` for bfloat16 (``mma.sync``,
-d 32-256) and ``"fma"`` for float32 (scalar IEEE FMAs, also d 8 and 16,
-the reduced configs' heads).  ``flash_attention`` launches the kernel
-for CUDA tensors and takes ``ref.ref_flash_attention`` for CPU tensors;
-its gradient is the plain version's (``backend.with_plain_grad``).
+dtype (``flash_attention_route``): ``"mma"`` for bfloat16 (``mma.sync``)
+and ``"fma"`` for float32 (scalar IEEE FMAs).  Both take every head dim
+in ``backend.HEAD_DIM_DOMAIN`` (a multiple of 8 from 8 to 256, as the
+reference's kernel takes any d), run at the smallest of the route's
+``WIDTHS`` (``backend.padded_head_dim``) with the columns past d zero.
+``flash_attention`` launches the kernel for CUDA tensors and takes
+``ref.ref_flash_attention`` for CPU tensors; its gradient is the plain
+version's (``backend.with_plain_grad``).
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ import torch
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_flash_attention
 
-# head dims each route's kernel is instantiated for: the bf16 kernel's
-# k16 fragments of Q K^T need d >= 32
-HEAD_DIMS = {"mma": (32, 64, 128, 256), "fma": (8, 16, 32, 64, 128, 256)}
+# the widths each route's kernel is instantiated for (a call runs the
+# smallest one >= d; the bf16 kernel's k16 fragments and tiling need 32 or
+# more)
+WIDTHS = {"mma": (32, 64, 128, 256), "fma": (8, 16, 32, 64, 128, 256)}
 
 
 def _lib():
@@ -57,10 +61,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, S, H, d = q.shape
-    route = flash_attention_route(q)
-    if d not in HEAD_DIMS[route]:
-        raise ValueError(f"flash_attention: the {route} route ({q.dtype}) "
-                         f"takes d in {HEAD_DIMS[route]}, got {d}")
+    backend.padded_head_dim(d, WIDTHS[flash_attention_route(q)],
+                            "flash_attention")
     if not all(backend.rows_aligned(t) for t in (q, k, v)):
         raise ValueError("flash_attention: every row of q, k, v must be "
                          "unit-strided and 16-byte aligned")

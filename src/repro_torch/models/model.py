@@ -240,10 +240,38 @@ def init_layer(generator, cfg: LMConfig, device=None) -> Params:
     return _init_layer(_generator(generator, device), cfg)
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked_like(tree, n: int):
+    """A stack of ``n`` trees shaped as ``tree``: ``tree`` itself as a
+    view for one, else empty leaves with a leading axis of ``n``."""
+    if isinstance(tree, dict):
+        return {k: _stacked_like(v, n) for k, v in tree.items()}
+    return tree.unsqueeze(0) if n == 1 else tree.new_empty((n, *tree.shape))
+
+
+def _put(stack, tree, i: int) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(stack[k], v, i)
+    else:
+        stack[i].copy_(tree)
+
+
+def _init_layers(gen, cfg: LMConfig) -> Params:
+    """The layers' parameters stacked on a leading axis: the layers drawn
+    one after another, each copied into the stack as soon as it is drawn,
+    so that one layer's tree is alive beside the stack (``torch.stack``
+    of all the trees would hold every layer twice)."""
+    n = cfg.n_layers
+    layer = _init_layer(gen, cfg)
+    stack = _stacked_like(layer, n)
+    if n == 1:
+        return stack
+    for i in range(n):
+        if i > 0:
+            layer = _init_layer(gen, cfg)
+        _put(stack, layer, i)
+        del layer
+    return stack
 
 
 def _init_params(cfg: LMConfig, gen) -> Params:
@@ -251,7 +279,7 @@ def _init_params(cfg: LMConfig, gen) -> Params:
     if cfg.embed_inputs:
         p["embed"] = L._embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                    cfg.pdtype)
-    p["layers"] = _stack([_init_layer(gen, cfg) for _ in range(cfg.n_layers)])
+    p["layers"] = _init_layers(gen, cfg)
     p["final_norm"] = L.init_rmsnorm(cfg.d_model, cfg.pdtype, gen.device)
     if not cfg.tie_embeddings:
         p["lm_head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab_size),

@@ -19,7 +19,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref as ref_oracle  # noqa: E402
 from repro_torch.convert import to_tensor  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import backend, ops  # noqa: E402
+from repro_torch.kernels import decode_attention as b5  # noqa: E402
+from repro_torch.kernels import flash_attention as b6  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     BLOCK_K, _runtime_scalar, decode_attention_route, split_count,
     split_tiles)
@@ -232,6 +234,79 @@ def test_decode_attention_large_groups(group, dtype, length, window):
     assert got.shape == (B, KV * group, d)
     _close(got, ref_ops.decode_attention(q, kc, vc, length, window,
                                          block_k=256), "decode", dtype)
+
+
+# ---------------------------------------------------------------------------
+# B5 and B6: the head-dim domain (every multiple of 8 from 8 to 256)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+def test_head_dim_domain_passes_the_checks(d, dtype):
+    """B5's and B6's checks (only the card runs them) on meta tensors:
+    every multiple of 8 from 8 to 256 in both dtypes, B5 at a group of
+    12, each run at the smallest width its route is instantiated for."""
+    code = 1 if dtype == torch.bfloat16 else 0
+    q = torch.empty((2, 12, d), dtype=dtype, device="meta")
+    kc = torch.empty((2, 100, 1, d), dtype=dtype, device="meta")
+    assert b5.check_inputs(q, kc, kc) == code
+    qf = torch.empty((1, 64, 3, d), dtype=dtype, device="meta")
+    assert b6.check_inputs(qf, qf, qf, window=16) == code
+    for mod, route in ((b5, b5.decode_attention_route(q)),
+                       (b6, b6.flash_attention_route(qf))):
+        width = backend.padded_head_dim(d, mod.WIDTHS[route], "check")
+        assert width >= d and width in mod.WIDTHS[route]
+        assert all(w < d for w in mod.WIDTHS[route] if w < width)
+
+
+@pytest.mark.parametrize("d", [0, 4, 12, 100, 260, 264])
+def test_head_dim_domain_refuses_the_rest(d):
+    """A head dim outside the domain raises ValueError naming it, in both
+    dtypes, for both kernels."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.empty((2, 4, d), dtype=dtype, device="meta")
+        kc = torch.empty((2, 100, 2, d), dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="multiple of 8"):
+            b5.check_inputs(q, kc, kc)
+        qf = torch.empty((1, 64, 3, d), dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="multiple of 8"):
+            b6.check_inputs(qf, qf, qf)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("d", [24, 80, 96])
+def test_flash_attention_padded_head_dims(d, dtype):
+    """The plain version a CPU tensor takes at head dims the kernels run
+    padded (d 24 at width 32, d 80 and 96 at 128) against the
+    reference's Pallas kernel in interpret mode and its oracle, causal
+    with a window."""
+    (q, qt), (k, kt), (v, vt) = (_normal(40 + d + i, (2, 128, 2, d), dtype)
+                                 for i in range(3))
+    got = ops.flash_attention(qt, kt, vt, causal=True, window=50)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, ref_ops.flash_attention(q, k, v, causal=True, window=50),
+           "flash", dtype)
+    _close(got, ref_oracle.ref_flash_attention(q, k, v, causal=True,
+                                               window=50), "flash", dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("d", [24, 80, 96])
+def test_decode_attention_padded_head_dims(d, dtype):
+    """The same for decode attention: a group of 4 over 2 KV heads, a
+    256-slot cache at length 200, window 0 and 64."""
+    (q, qt), (kc, kct), (vc, vct) = _decode_inputs(60 + d, 2, 8, 2, 256, d,
+                                                   dtype)
+    for window in (0, 64):
+        got = ops.decode_attention(qt, kct, vct, 200, window)
+        assert got.dtype == qt.dtype and got.shape == (2, 8, d)
+        _close(got, ref_ops.decode_attention(q, kc, vc, 200, window,
+                                             block_k=64, interpret=True),
+               "decode", dtype)
+        _close(got, ref_oracle.ref_decode_attention(q, kc, vc, 200,
+                                                    window=window),
+               "decode", dtype)
 
 
 @pytest.mark.parametrize("nsplit", [1, 4, 33])

@@ -34,10 +34,13 @@ from repro_torch import configs as port_configs  # noqa: E402
 from repro_torch import models  # noqa: E402
 from repro_torch.configs import mamba2_780m  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.kernels import decode_attention as b5  # noqa: E402
 from repro_torch.kernels import flash_attention as b6  # noqa: E402
+from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.kernels.grouped_matmul import grouped_matmul_route  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
 
 TOL = 1e-4
 DECODE_TOL = 2e-3
@@ -432,6 +435,44 @@ def test_init_params_attention_and_moe_statistics():
     assert bool((p["layers/attn/q_norm/scale"] == 1).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_and_embed_init_scale_in_place(dtype):
+    """``_dense_init`` and ``_embed_init`` scale their float32 draw in
+    place (one float32 slab alive before the cast: kimi-k2's expert slab
+    is 22.5 GB of it): bit-equal to ``(t * std).to(dtype)`` on the same
+    seeded draw."""
+    shape, fan_in = (3, 40, 24), 40
+    got = layers._dense_init(torch.Generator().manual_seed(5), shape, dtype,
+                             in_axis_size=fan_in)
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                generator=torch.Generator().manual_seed(5))
+    assert got.dtype == dtype
+    assert torch.equal(got, (t * (1.0 / np.sqrt(fan_in))).to(dtype))
+    emb = layers._embed_init(torch.Generator().manual_seed(6), (50, 16),
+                             dtype)
+    r = torch.randn((50, 16), generator=torch.Generator().manual_seed(6))
+    assert torch.equal(emb, (r * 0.02).to(dtype))
+
+
+@pytest.mark.parametrize("n_layers", [1, 3])
+def test_init_params_stacks_layers_as_drawn(n_layers):
+    """``init_params`` copies each layer into the stack as it is drawn:
+    the tree ``torch.stack`` of the layers drawn one after another (after
+    the embedding) would give, with one layer's tree alive beside the
+    stack instead of all of them."""
+    cfg = dataclasses.replace(PORT_ARCH["kimi_k2_1t_a32b"].REDUCED,
+                              n_layers=n_layers)
+    got = models.init_params(cfg, 4, device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    layers._embed_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdtype)
+    drawn = [model_mod._init_layer(gen, cfg) for _ in range(n_layers)]
+    for (k, g), (k2, w0) in zip(_leaves(got["layers"]), _leaves(drawn[0])):
+        assert k == k2 and g.shape == (n_layers, *w0.shape)
+        want = torch.stack([dict(_leaves(t))[k] for t in drawn])
+        assert torch.equal(g, want), k
+
+
 @pytest.mark.parametrize("name", NAMES + ["mamba2-780m"])
 def test_param_count_matches_reference(name):
     if name == "mamba2-780m":
@@ -509,17 +550,29 @@ def _meta_prefill(cfg, B=2, S=4096):
     return t, torch.empty_like(t), torch.empty_like(t)
 
 
+# the GQA group each full config hands B5 and B6 (phase 14 of
+# chip_smoke.py runs musicgen-large's 1 and command-r-plus-104b's 12)
+FULL_GROUPS = {"llama3_2_3b": 3, "qwen3_1_7b": 2, "command_r_plus_104b": 12,
+               "gemma3_4b": 2, "phi3_5_moe_42b_a6_6b": 4,
+               "kimi_k2_1t_a32b": 8, "hymba_1_5b": 5, "internvl2_76b": 8,
+               "musicgen_large": 1}
+
+
 @pytest.mark.parametrize("module", [m for m in ARCH_MODULES
                                     if PORT_ARCH[m].CONFIG.has_attn])
 def test_kernel_checks_pass_at_full_width(module):
-    """The checks only the card runs (B6's and B5's head-dim sets and
+    """The checks only the card runs (B6's and B5's head-dim domain and
     dtypes, row alignment) on meta tensors at every full config's
-    attention shapes: prefill q/k/v, and decode q against each layer's
-    cache view of the stacked decode state.  B7 takes its wgmma route on
-    the MoE configs' expert slabs.  The reduced configs' heads (16 or 8)
-    are refused by B6's and B5's bf16 routes (B6's fragments need d >=
-    32, B5's TMA boxes are 64 wide); both float32 routes take them."""
+    attention shapes: prefill q/k/v at B 2 x S 4,096, and decode q at B 8
+    against each layer's view of a 4,352-slot stacked decode state, at
+    each config's GQA group (1 to 12).  B4 takes the configs' widths (up
+    to command-r-plus-104b's 12,288).  B7 takes its wgmma route on the
+    MoE configs' expert slabs at the capacity of 2 x 4,096 tokens
+    (kimi-k2: 384 experts, capacity 216).  The reduced configs' heads (16
+    or 8) are in both routes' domain in both dtypes."""
     cfg = PORT_ARCH[module].CONFIG
+    assert cfg.n_heads // cfg.n_kv_heads == FULL_GROUPS[module]
+    assert cfg.d_model <= rmsnorm_kernel.MAX_D
     assert b6.check_inputs(*_meta_prefill(cfg), window=1024) == 1
     st = models.init_decode_state(cfg, 8, 4352, device="meta")
     q = torch.empty((8, cfg.n_heads, cfg.d_head), dtype=cfg.adtype,
@@ -530,6 +583,7 @@ def test_kernel_checks_pass_at_full_width(module):
         tree = models.init_abstract(dataclasses.replace(cfg, n_layers=1))
         moe = tree["layers"]["moe"]
         cap = models.moe_capacity(cfg, 8192)
+        assert cap == {16: 1280, 384: 216}[cfg.n_experts]
         xe = torch.empty((cfg.n_experts, cap, cfg.d_model), dtype=cfg.adtype,
                          device="meta")
         h = torch.empty((cfg.n_experts, cap, cfg.d_ff), dtype=cfg.adtype,
@@ -538,14 +592,12 @@ def test_kernel_checks_pass_at_full_width(module):
         assert grouped_matmul_route(h, moe["w_down"][0]) == "wgmma"
     small = PORT_ARCH[module].REDUCED
     assert b6.check_inputs(*_meta_prefill(small, S=64)) == 0
-    with pytest.raises(ValueError, match="takes d in"):
-        b6.check_inputs(*(t.to(torch.bfloat16)
-                          for t in _meta_prefill(small, S=64)))
+    assert b6.check_inputs(*(t.to(torch.bfloat16)
+                             for t in _meta_prefill(small, S=64))) == 1
     sq = torch.empty((2, small.n_heads, small.d_head), device="meta")
     sc = torch.empty((2, 64, small.n_kv_heads, small.d_head), device="meta")
     assert b5.check_inputs(sq, sc, sc) == 0
-    with pytest.raises(ValueError, match="takes d in.*ROADMAP.md"):
-        b5.check_inputs(*(t.to(torch.bfloat16) for t in (sq, sc, sc)))
+    assert b5.check_inputs(*(t.to(torch.bfloat16) for t in (sq, sc, sc))) == 1
 
 
 # the serving drill's model (repro/serving/workload.py _LM)
@@ -559,21 +611,24 @@ DRILL_LM = models.LMConfig(name="live-drill", n_layers=2, d_model=64,
                                  if PORT_ARCH[m].REDUCED.has_attn]
                          + [DRILL_LM], ids=lambda c: c.name)
 def test_decode_checks_pass_at_reduced_and_drill_shapes(cfg, batch, max_seq):
-    """B5's checks (the float32 route's head dims 8 and 16, the group,
-    row alignment) on meta tensors at the decode shapes the serve CLI
-    (batch up to 8, prompt 8 + 4 new + 8 slots) and the serving drill
-    (waves of 1-4, 4 + 4 + 8 slots) give it: q against each layer's
-    cache view of the stacked float32 decode state.  The same shapes in
-    bf16 are refused, naming the gap in ROADMAP.md."""
+    """B5's checks (head dims 8 and 16, the group, row alignment) on meta
+    tensors at the decode shapes the serve CLI (batch up to 8, prompt 8 +
+    4 new + 8 slots) and the serving drill (waves of 1-4, 4 + 4 + 8
+    slots) give it: q against each layer's cache view of the stacked
+    float32 decode state, on the float32 route at its own width 8 or 16;
+    the same shapes in bf16 on the mma route, run at width 64."""
     st = models.init_decode_state(cfg, batch, max_seq, torch.float32,
                                   device="meta")
     q = torch.empty((batch, cfg.n_heads, cfg.d_head), device="meta")
-    assert cfg.d_head in (8, 16) and cfg.d_head in b5.HEAD_DIMS["fma"]
+    assert cfg.d_head in (8, 16)
+    assert backend.padded_head_dim(cfg.d_head, b5.WIDTHS["fma"],
+                                   "decode_attention") == cfg.d_head
     for i in range(cfg.n_layers):
         assert b5.check_inputs(q, st.k_cache[i], st.v_cache[i]) == 0
     k16, v16 = (c[0].to(torch.bfloat16) for c in (st.k_cache, st.v_cache))
-    with pytest.raises(ValueError, match="takes d in.*ROADMAP.md"):
-        b5.check_inputs(q.to(torch.bfloat16), k16, v16)
+    assert b5.check_inputs(q.to(torch.bfloat16), k16, v16) == 1
+    assert backend.padded_head_dim(cfg.d_head, b5.WIDTHS["mma"],
+                                   "decode_attention") == 64
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

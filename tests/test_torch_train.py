@@ -35,6 +35,7 @@ from repro.data import SyntheticLMDataset as RefDataset  # noqa: E402
 from repro.kernels import ref as ref_k  # noqa: E402
 from repro_torch import models  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.kernels import backend  # noqa: E402
 from repro_torch.kernels import flash_attention as b6  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.optim.adamw import _leaves  # noqa: E402
@@ -379,16 +380,19 @@ def test_train_state_defaults_to_cuda(monkeypatch):
 def test_flash_checks_take_small_heads_in_float32(module):
     """B6's checks on meta tensors at the train CLI's shapes (B 8 x S 64,
     KV repeated to H heads) of each reduced config: its float32 route
-    takes d 8 and 16; the same heads in bf16 raise (the mma route's
-    fragments need d >= 32)."""
+    takes d 8 and 16 at their own width; the same heads in bf16 take the
+    mma route at width 32 (its k16 fragments and tiling)."""
     cfg = PORT_ARCH[module].REDUCED
     assert cfg.d_head in (8, 16) and cfg.adtype == torch.float32
     q = torch.empty((8, 64, cfg.n_heads, cfg.d_head), device="meta")
     assert b6.flash_attention_route(q) == "fma"
     assert b6.check_inputs(q, q, q, window=8) == 0
+    assert backend.padded_head_dim(cfg.d_head, b6.WIDTHS["fma"],
+                                   "flash_attention") == cfg.d_head
     qb = q.to(torch.bfloat16)
     assert b6.flash_attention_route(qb) == "mma"
-    with pytest.raises(ValueError, match="mma route.*takes d in"):
-        b6.check_inputs(qb, qb, qb)
-    assert b6.HEAD_DIMS["fma"] == (8, 16, 32, 64, 128, 256)
-    assert b6.HEAD_DIMS["mma"] == (32, 64, 128, 256)
+    assert b6.check_inputs(qb, qb, qb) == 1
+    assert backend.padded_head_dim(cfg.d_head, b6.WIDTHS["mma"],
+                                   "flash_attention") == 32
+    assert b6.WIDTHS == {"fma": (8, 16, 32, 64, 128, 256),
+                         "mma": (32, 64, 128, 256)}
