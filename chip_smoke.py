@@ -297,6 +297,24 @@ and last, with the metrics registry on:
      2,048 / 7,168 / 8,192 / 12,288, B6 at 32 heads of d 64 and 64 and
      96 of d 128, B5 at groups 1, 8 and 12 against the 4,352-slot cache,
      B7 at kimi-k2's 384 x 216 x 7,168 <-> 2,048 on the wgmma route.
+ 15. Float16 at full width (seed 31): llama3.2-3b (28 layers), mamba2-780m
+     (48) and phi3.5-moe (8 of 32) with their dtype strings replaced:
+     the prefill of B 2 x S 4,096 on the kernels, counted (every call one
+     phase 6 holds), timed and profiled with peak memory, then held
+     against the plain versions' float16 run on the same weights and
+     inputs within 2x a control measured in the same run (the plain
+     versions in float32 on the widened weights): hidden states, the last
+     64 positions' logits, greedy tokens token by token (a differing one
+     must be a near tie), and phi3.5-moe's expert swaps at most 2x the
+     control's; llama3.2-3b's decode, 4 teacher-forced steps at B 8
+     against a 4,352-slot float16 cache filled from the seed, held the
+     same way, then timed.  Phase 6 holds, drawn last, every float16
+     call of these runs and the domains the reference's kernels take:
+     B5 and B6 at d 1, 4, 12, 100, 257, 320 and 512 in the three dtypes
+     (B5 at a group of 8), B8 at P 128 / N 256, at chunk 2,048 and at
+     chunk 12,288 with P 130 (the long chunks held to float64 alone,
+     since the plain version's float32 cumsum drifts there), B4 at
+     D 20,000 and 32,768.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
@@ -306,11 +324,13 @@ tolerances (tests/test_kernels.py, rtol = atol: flash 2e-5, decode 3e-5,
 grouped matmul 2e-3, rmsnorm 1e-5, SSD scan 2e-3, its state always
 float32); in bfloat16 within one rounding
 step of each value (2^-7 of it) plus 2^-14 of the largest |plain|, and
-at most 5% of the outputs differing at all; every case whose window
+at most 5% of the outputs differing at all; in float16 the same at its
+step, 2^-10, and the same 5%; every case whose window
 bites also shows that the plain version at window -1 and +1 falls
 outside its limit; decode at length 0 exactly zero; the fp32 SSD scan no
 further from a float64 evaluation than its plain version (or within
-1e-5 of it); the model's card forward within rtol = atol = 1e-4 of the
+1e-5 of it), and at a chunk of 2,048 or more within 1e-4 of it plus
+half a rounding step of y's dtype; the model's card forward within rtol = atol = 1e-4 of the
 CPU run and its teacher-forced decode within 2e-3 of max|logit| of the
 forward (the CPU tests' tolerances), an int8-cache decode within 0.05
 of max|logit|, expert ids and positions exact, the kernels' gradients
@@ -452,6 +472,14 @@ MODEL_F32_TOL = {"flash_attention": 2e-5, "decode_attention": 3e-5,
 # than the plain float32 version, or within this much of it (both
 # relative to 1 + |float64 value|)
 SSD_TRUTH_FLOOR = 1e-5
+# B8 at a chunk of 2,048 or more, where the plain version's float32
+# cumsum drifts from float64 (3.8e-3 at chunk 2,048) past its own
+# limit: held to the float64 evaluation alone, within this much (5x the
+# kernel's 1.8e-5 at chunk 2,048 in float32), plus half a rounding step
+# of y's dtype where y is 16-bit
+SSD_LONG_CHUNK_TOL = 1e-4
+HALF_STEP = {"torch.float32": 0.0, "torch.bfloat16": 2.0 ** -8,
+             "torch.float16": 2.0 ** -11}
 # bfloat16: kernel and plain version both compute in float32 and round
 # once to bfloat16 (8 significant bits), so an output may differ by one
 # rounding step, at most 2^-7 of its value; 2^-14 of the largest |plain|
@@ -462,6 +490,9 @@ SSD_TRUTH_FLOOR = 1e-5
 BF16_STEP = 2.0 ** -7
 BF16_FLOOR = 2.0 ** -14
 BF16_MAX_DIFFER = 0.05
+# float16: the same rule at its own step, 2^-10 of a value (11
+# significant bits); the floor as for bfloat16
+F16_STEP = 2.0 ** -10
 # phase 6's kernels: wrapper name, csrc source, the Pallas call it replaces
 MODEL_KERNELS = (
     ("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:36"),
@@ -1474,14 +1505,17 @@ def profiled_kernels_ms(torch, fn, reps: int) -> dict:
 
 def model_limit(torch, op: str, dtype, want):
     """Per-entry limit on ``|kernel - plain|`` and its description: the
-    reference's rtol = atol for float32; for bfloat16 one rounding step of
-    each value plus ``BF16_FLOOR`` of the largest |plain|."""
+    reference's rtol = atol for float32; for bfloat16 and float16 one
+    rounding step of each value plus ``BF16_FLOOR`` of the largest
+    |plain|."""
     if dtype == torch.float32:
         tol = MODEL_F32_TOL[op]
         return tol + tol * want.abs(), f"rtol=atol={tol}"
     floor = BF16_FLOOR * float(want.abs().max())
-    return (BF16_STEP * want.abs() + floor,
-            f"2^-7*|plain| + {floor:.3g} (2^-14 * max|plain|)")
+    step, name = ((BF16_STEP, "2^-7") if dtype == torch.bfloat16
+                  else (F16_STEP, "2^-10"))
+    return (step * want.abs() + floor,
+            f"{name}*|plain| + {floor:.3g} (2^-14 * max|plain|)")
 
 
 def fmt_ms(ms) -> str:
@@ -1532,7 +1566,12 @@ def model_cases(torch, device):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device)
     gen.manual_seed(MODEL_SEED)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+
+    def mma_route(dt, d):
+        # B5's and B6's route for a contiguous input (backend.head_dim_route)
+        return "mma" if dt in (bf16, f16) and d % 8 == 0 and d <= 256 \
+            else "fma"
 
     def randn(*shape, dtype=bf16):
         return torch.randn(shape, generator=gen, device=device,
@@ -1542,12 +1581,13 @@ def model_cases(torch, device):
 
     def add(op, label, args, kwargs, plain, library, bytes_moved, flops,
             dtype, reps, check=None, shift=None, truth=None, bf16_flops=0,
-            route=None):
+            route=None, float64_tol=None):
         cases.append(dict(op=op, label=label, args=args, kwargs=kwargs,
                           plain=plain, library=library,
                           bytes=bytes_moved, flops=flops, dtype=dtype,
                           reps=reps, check=check, shift=shift, truth=truth,
-                          bf16_flops=bf16_flops, route=route))
+                          bf16_flops=bf16_flops, route=route,
+                          float64_tol=float64_tol))
 
     def norm_case(label, R, D, dt):
         x, s = randn(R, D, dtype=dt), randn(D, dtype=dt)
@@ -1576,6 +1616,7 @@ def model_cases(torch, device):
 
     def flash_case(label, B, S, H, d, causal, window, dt, reps):
         q, k, v = (randn(B, S, H, d, dtype=dt) for _ in range(3))
+        route = mma_route(dt, d)
         pos = torch.arange(S, device=device)
         allowed = pos[None, :] <= pos[:, None] if causal else \
             torch.ones((S, S), dtype=torch.bool, device=device)
@@ -1601,7 +1642,7 @@ def model_cases(torch, device):
             4 * B * H * d * attention_pairs(S, causal, window), dt, reps,
             shift=(lambda e, a=(q, k, v), causal=causal, window=window:
                    (a, {"causal": causal, "window": window + e}))
-            if 0 < window < S else None)
+            if 0 < window < S else None, route=route)
 
     # B6: llama3.2-3b prefill (KV 8 repeated to 24 heads), gemma3-4b local
     for args in (
@@ -1646,7 +1687,7 @@ def model_cases(torch, device):
             shift=(lambda e, a=(q, kc, vc, arg), window=window:
                    ((*a, window + e), {}))
             if 0 < window < length else None,
-            route="mma" if dt == bf16 else "fma")
+            route=mma_route(dt, d))
 
     for args in (
             ("llama3.2-3b decode", (8, 24, 8, 128, 8192), 6000, 0, bf16),
@@ -1688,7 +1729,7 @@ def model_cases(torch, device):
     # P 64, N 128, one group, chunk 256) over B 2 x S 4,096, fp32 (what the
     # model hands it) and bf16; hymba-1.5b's SSM heads (H 50, N 16); edges
     def ssd_case(label, B, S, H, G, P, N, chunk, dt_kind, a_kind, dtype,
-                 reps, views=False):
+                 reps, views=False, long_chunk=False):
         if views:
             # x, b and c as views into one conv output (G 1), the way
             # ssm_apply hands them to B8 in a float32 model
@@ -1720,8 +1761,11 @@ def model_cases(torch, device):
                        + B * S * H * 4 + H * 4 + B * H * P * N * 4)
         add("ssd_scan", label, (x, dt, a, b, c), {"chunk": chunk},
             ref.ref_ssd_scan, None, bytes_moved, cb_flops + head_flops,
-            dtype, reps, truth=ssd_float64 if dtype == f32 else None,
-            bf16_flops=cb_flops if dtype == bf16 else 0, route="mma")
+            dtype, reps,
+            truth=ssd_float64 if dtype == f32 or long_chunk else None,
+            bf16_flops=cb_flops if dtype != f32 else 0, route="mma",
+            float64_tol=SSD_LONG_CHUNK_TOL + HALF_STEP[str(dtype)]
+            if long_chunk else None)
 
     for args in (
             ("mamba2-780m SSD", 2, 4096, 48, 1, 64, 128, 256, "", "", f32, 10),
@@ -1982,6 +2026,75 @@ def model_cases(torch, device):
              Fo, bf16, 5, "wgmma", w=w_up)
     gmm_case("kimi-k2 expert down, 384 experts, capacity 216", E, C, Fo, D,
              bf16, 5, "wgmma", w=w_up.view(E, Fo, D))
+    del w_up
+
+    # phase 15's calls, drawn after every earlier case (phase 15 checks
+    # each call of its float16 runs against these cases' signatures).
+    # (a) llama3.2-3b: B4 over the prefill's 2 x 4,096 tokens and the
+    # decode batch of 8, B6 at its prefill (24 heads of d 128), B5 at B 8
+    # against the 4,352-slot float16 cache at length 4,097; (b)
+    # mamba2-780m: B4 at d_model 1,536 and the gated 3,072 (its SSD runs
+    # in float32, as in bf16: phase 6 holds that call above); (c)
+    # phi3.5-moe: B4 at 4,096, B6 at 32 heads, B7 at capacity 1,280
+    for label, R, D in (("fp16 llama3.2-3b hidden norm, prefill", 8192, 3072),
+                        ("fp16 llama3.2-3b hidden norm, decode B 8", 8, 3072),
+                        ("fp16 mamba2-780m ln1 / final_norm, prefill", 8192,
+                         1536),
+                        ("fp16 mamba2-780m gated norm, prefill", 8192, 3072),
+                        ("fp16 phi3.5-moe hidden norm, prefill", 8192, 4096)):
+        norm_case(label, R, D, f16)
+    for args in (("fp16 llama3.2-3b prefill", 2, 4096, 24, 128, True, 0,
+                  f16, 5),
+                 ("fp16 phi3.5-moe prefill", 2, 4096, 32, 128, True, 0, f16,
+                  5)):
+        flash_case(*args)
+    decode_case("fp16 llama3.2-3b decode, 4,352-slot cache (device int32)",
+                (8, 24, 8, 128, 4352), 4097, 0, f16)
+    for args in (("fp16 phi3.5-moe expert gate / up, capacity 1,280", 16,
+                  1280, 4096, 6400, f16, 5, "wgmma"),
+                 ("fp16 phi3.5-moe expert down, capacity 1,280", 16, 1280,
+                  6400, 4096, f16, 5, "wgmma"),
+                 ("fp16 edge: ragged C, D, F", 3, 50, 100, 70, f16, 20,
+                  "mma_sync")):
+        gmm_case(*args)
+    # (d) the domains the reference's kernels take and B4-B8 once refused
+    # on the card: B6 and B5 at head dims off the multiple-of-8 grid and
+    # above 256 in the three dtypes (B6 causal over S 1,000 with 8 heads;
+    # B5 at a GQA group of 8 over 2 KV heads, a 4,096-slot cache at
+    # length 3,000); B8 at P 128 / N 256 and at chunk 2,048, float32 and
+    # float16 (and mamba2-780m's shape in float16); B4 past the one-pass
+    # kernel's 16,384 at D 20,000 and 32,768
+    for d in (1, 4, 12, 100, 257, 320, 512):
+        for dt in (f32, bf16, f16):
+            flash_case(f"open domain: head dim {d}, causal", 1, 1000, 8, d,
+                       True, 0, dt, 3)
+            decode_case(f"open domain: head dim {d}, group 8",
+                        (4, 16, 2, d, 4096), 3000, 0, dt)
+    for args in (
+            ("mamba2-780m SSD, fp16", 2, 4096, 48, 1, 64, 128, 256, "", "",
+             f16, 10),
+            ("open domain: P 128, N 256", 1, 4096, 8, 1, 128, 256, 256, "",
+             "", f32, 5),
+            ("open domain: P 128, N 256, fp16", 1, 4096, 8, 1, 128, 256, 256,
+             "", "", f16, 5),
+            ("open domain: chunk 2,048", 1, 4096, 8, 1, 64, 128, 2048, "",
+             "", f32, 5, False, True),
+            ("open domain: chunk 2,048, fp16", 1, 4096, 8, 1, 64, 128, 2048,
+             "", "", f16, 5, False, True),
+            # past 10,240 the chunk-long arrays leave shared memory for a
+            # global buffer (ssd_scan_big_floats); P 130 adds a ragged
+            # 2-column block to two full ones
+            ("open domain: chunk 12,288, P 130", 1, 12288, 2, 1, 130, 128,
+             12288, "", "", f32, 3, False, True),
+            ("open domain: chunk 12,288, P 130, fp16", 1, 12288, 2, 1, 130,
+             128, 12288, "", "", f16, 3, False, True)):
+        ssd_case(*args)
+    for label, R, D, dt in (("open domain: D 20,000", 512, 20000, f32),
+                            ("open domain: D 20,000, fp16", 512, 20000, f16),
+                            ("open domain: D 32,768, fp16", 512, 32768, f16),
+                            ("open domain: D 32,768, bf16", 512, 32768,
+                             bf16)):
+        norm_case(label, R, D, dt)
     return ops, cases
 
 
@@ -2020,11 +2133,13 @@ def phase_model_kernels(torch, device, card: str) -> list:
     plain version and the library call timed."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_nsplit, decode_attention_route)
+    from repro_torch.kernels.flash_attention import flash_attention_route
     from repro_torch.kernels.grouped_matmul import grouped_matmul_route
     from repro_torch.kernels.ssd_scan import ssd_scan_route
     # the kernel each op's case must take, by op (cases name it)
     route_of = {"grouped_matmul": grouped_matmul_route,
                 "decode_attention": decode_attention_route,
+                "flash_attention": flash_attention_route,
                 "ssd_scan": ssd_scan_route}
     ops, cases = model_cases(torch, device)
     names = tuple(name for name, _, _ in MODEL_KERNELS)
@@ -2072,12 +2187,23 @@ def phase_model_kernels(torch, device, card: str) -> list:
             err = max(err, float(diff.max()))
             lim, tol = model_limit(torch, c["op"], o.dtype, wf)
             over = int((diff > lim).sum())
-            check(over == 0, f"{where}: {over} entries beyond {tol} "
-                  f"(max abs err {float(diff.max()):.3g})")
             used = max(used, float(torch.where(lim > 0, diff / lim,
                                                diff).max()))
             differ = float((o != wt).float().mean())
-            if o.dtype == torch.bfloat16:
+            # a case with a float64 tolerance (a chunk long enough for the
+            # plain version's float32 cumsum to drift from float64 past
+            # the limit) is held to float64 alone, below; here its
+            # distance from the plain version is only logged
+            if c["float64_tol"] is not None:
+                log(f"{where}: {over} entries beyond {tol} and {differ:.4f} "
+                    f"of the outputs differing against the plain version, "
+                    f"held to float64 instead")
+                tols.append(tol)
+                differs.append(differ)
+                continue
+            check(over == 0, f"{where}: {over} entries beyond {tol} (max "
+                  f"abs err {float(diff.max()):.3g})")
+            if o.dtype in (torch.bfloat16, torch.float16):
                 check(differ <= BF16_MAX_DIFFER, f"{where}: {differ:.4f} of "
                       f"the outputs differ from the plain version's, more "
                       f"than {BF16_MAX_DIFFER} (a store that does not round "
@@ -2111,11 +2237,17 @@ def phase_model_kernels(torch, device, card: str) -> list:
                 return max(float(((p.double() - t).abs() / (1 + t.abs()))
                                  .max()) for p, t in zip(parts, exact))
             truth_err = {"kernel": rel(outs_c), "plain": rel(wants_c)}
-            check(truth_err["kernel"] <= max(truth_err["plain"],
-                                             SSD_TRUTH_FLOOR),
-                  f"{where}: the kernel is further from the float64 "
-                  f"evaluation ({truth_err['kernel']:.3g}) than the plain "
-                  f"version ({truth_err['plain']:.3g})")
+            if c["float64_tol"] is not None:
+                check(truth_err["kernel"] <= c["float64_tol"],
+                      f"{where}: the kernel is {truth_err['kernel']:.3g} "
+                      f"from the float64 evaluation, more than "
+                      f"{c['float64_tol']:.3g}")
+            else:
+                check(truth_err["kernel"] <= max(truth_err["plain"],
+                                                 SSD_TRUTH_FLOOR),
+                      f"{where}: the kernel is further from the float64 "
+                      f"evaluation ({truth_err['kernel']:.3g}) than the "
+                      f"plain version ({truth_err['plain']:.3g})")
             del exact
         if c["op"] == "ssd_scan":
             # the "mma" route: each float32 product as three TF32 products
@@ -2126,8 +2258,10 @@ def phase_model_kernels(torch, device, card: str) -> list:
         elif c["op"] == "rmsnorm":
             t_ops = c["flops"] / F32_OPS_PER_S
         else:
-            t_ops = c["flops"] / (BF16_OPS_PER_S if c["dtype"] ==
-                                  torch.bfloat16 else F32_OPS_PER_S)
+            # 16-bit inputs at the card's 16-bit rate, whatever route the
+            # port takes: a slower route's cost is in its time, not here
+            t_ops = c["flops"] / (F32_OPS_PER_S if c["dtype"] ==
+                                  torch.float32 else BF16_OPS_PER_S)
         t_bytes = c["bytes"] / MEM_BYTES_PER_S
         row = {"label": c["label"], "max_abs_err": err, "tol": ", ".join(tols),
                "limit_used": used, "differ_share": differs[0],
@@ -2136,11 +2270,12 @@ def phase_model_kernels(torch, device, card: str) -> list:
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         if c["route"] is not None:
-            row["route"] = route_of[c["op"]](*c["args"])
+            row["route"] = route_of[c["op"]](*(
+                a for a in c["args"] if torch.is_tensor(a) and a.dim() > 0))
             check(row["route"] == c["route"], f"{where}: took the "
                   f"{row['route']} route, want {c['route']}")
         if c["op"] == "decode_attention":
-            row["nsplit"] = decode_attention_nsplit(*c["args"][:2])
+            row["nsplit"] = decode_attention_nsplit(*c["args"][:3])
         fn = getattr(ops, c["op"])
         # inputs smaller than three L2s are cycled through three copies,
         # so that each timed call reads them from device memory
@@ -3000,7 +3135,7 @@ def phase_chaos(torch, device, fs, graph, eng, card) -> dict:
 
 # the model kernels' counters and the prefix of each one's CUDA kernels in
 # a profiler trace
-KERNEL_PREFIX = {"rmsnorm": "rmsnorm_kernel", "decode_attention": "decode_",
+KERNEL_PREFIX = {"rmsnorm": "rmsnorm_", "decode_attention": "decode_",
                  "flash_attention": "flash_", "grouped_matmul": "gmm_",
                  "ssd_scan": "ssd_"}
 
@@ -3262,7 +3397,8 @@ def timed_run(torch, ops, label: str, fn, want: dict, reps: int,
     log(f"profile {label}: share of device time by model kernel "
         f"{json.dumps(share)} [{card}]")
     return {"ms": ms, "peak_bytes": peak, "launches": launches,
-            "kernel_share": share, "idle_share": stats.get("idle_share")}
+            "kernel_share": share, "idle_share": stats.get("idle_share"),
+            "device_ms": busy / 1e3 if busy > 0 else None}
 
 
 def phase_models(torch, device, card: str, held: set) -> dict:
@@ -5284,6 +5420,286 @@ def phase_last_configs(torch, device, card: str, held: set) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: float16 models at full width on the card
+# ---------------------------------------------------------------------------
+
+MODEL15_SEED = 31           # phase 15's weights and inputs, one seed a run
+# (a)-(c): (label, config module, layers, decode after the prefill);
+# llama3.2-3b and mamba2-780m at their published depths, phi3.5-moe at 8
+# of its 32 layers, as phase 10c runs it in bf16 (32 do not fit 80 GB)
+MODEL15_RUNS = (("llama3.2-3b", "llama3_2_3b", 28, True),
+                ("mamba2-780m", "mamba2_780m", 48, False),
+                ("phi3.5-moe", "phi3_5_moe_42b_a6_6b", 8, False))
+# the kernels' float16 run against the plain versions' float16 run (same
+# weights, same inputs) may differ by at most this many times the
+# control, measured in the same run: the plain versions' float16 run
+# against their float32 run (the float16 weights widened)
+F16_CONTROL_MARGIN = 2.0
+F16_LOGIT_ROWS = 64         # prefill positions a sequence whose greedy
+#                             tokens are compared
+F16_DECODE_STEPS = 4        # decode steps held, teacher-forced
+
+
+def plain_versions(ops, ref, stack):
+    """Inside ``stack`` (an ExitStack), every model kernel's wrapper in
+    ``ops`` replaced by its plain version (B6 32 heads and B7 16 experts
+    at a time, which compute the same values in less memory)."""
+    for name, fn in (("rmsnorm", ref.ref_rmsnorm),
+                     ("flash_attention",
+                      heads_at_a_time(ref.ref_flash_attention, 32)),
+                     ("decode_attention", ref.ref_decode_attention),
+                     ("grouped_matmul",
+                      experts_at_a_time(ref.ref_grouped_matmul, 16)),
+                     ("ssd_scan", ref.ref_ssd_scan)):
+        stack.enter_context(OpSwap(ops, name, fn))
+
+
+def greedy_hold(got, want, where: str) -> dict:
+    """Greedy tokens of two runs' logits, (rows, vocab), compared row by
+    row: a row whose token differs must be a near tie, the two tokens'
+    logits in ``want`` within twice the row's largest drift between the
+    runs (a swap the rounding explains)."""
+    tg, tw = got.argmax(-1), want.argmax(-1)
+    drift = (got - want).abs().amax(-1)
+    gaps = []
+    for r in (tg != tw).nonzero().flatten().tolist():
+        gap = abs(float(want[r, tg[r]] - want[r, tw[r]]))
+        check(gap <= 2 * float(drift[r]), f"{where}: row {r} takes token "
+              f"{int(tg[r])} for {int(tw[r])}, a logit gap {gap:.3g} beyond "
+              f"twice its drift {float(drift[r]):.3g} (not a near tie)")
+        gaps.append(gap)
+    return {"tokens": int(tg.numel()), "differ": len(gaps),
+            "near_tie_gaps": gaps}
+
+
+def held_rows(ra, rb, capacity: int):
+    """Tokens whose expert ids and kept slots agree in every MoE layer of
+    two recorded runs (``RouteRecorder``), and the count that do not."""
+    same = None
+    for ia, ib, pa, pb in zip(ra.experts, rb.experts, ra.positions,
+                              rb.positions):
+        s = (ia == ib).all(dim=1) & ((pa < capacity) == (pb < capacity)) \
+            .all(dim=1)
+        same = s if same is None else same & s
+    return same, int((~same).sum())
+
+
+def f16_hold(torch, device, label: str, module: str, n_layers: int,
+             decode: bool, seed: int, card: str, held: set) -> dict:
+    """Phase 15 (a)-(c) for one config: float16 weights at full width
+    drawn on the card; the prefill of PREFILL_SHAPE on the kernels,
+    counted, timed and profiled with every kernel call among ``held``;
+    then held against the plain versions' float16 run within
+    F16_CONTROL_MARGIN times the control (their float32 run): the hidden
+    states, and the greedy tokens of the last F16_LOGIT_ROWS positions
+    token by token.  With ``decode``, F16_DECODE_STEPS teacher-forced
+    steps at DECODE_BATCH against a 4,352-slot float16 cache filled with
+    seeded values up to length 4,096, held the same way, then timed."""
+    import contextlib
+    from repro_torch import models
+    from repro_torch.configs.base import cache_seq_len
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers
+    cfg = arch_config(module, n_layers=n_layers, param_dtype="float16",
+                      activ_dtype="float16")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activ_dtype="float32")
+    where = f"phase 15 {label} fp16 {n_layers} layers"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = models.init_params(cfg, seed, device=device)
+    B, S = PREFILL_SHAPE
+    x = host_inputs(torch, cfg, B, S, seed).to(device)
+    capacity = models.moe_capacity(cfg, B * S) if cfg.is_moe else 0
+    launches = {**bf16_launches(cfg),
+                "flash_attention": n_layers if cfg.has_attn else 0,
+                "ssd_scan": n_layers if cfg.has_ssm else 0}
+
+    def prefill(p, c, inputs):
+        h, _ = models.forward(p, c, inputs)
+        return h, models.logits_fn(p, c, h[:, -F16_LOGIT_ROWS:])
+
+    # (the lambdas read `params` when called: once it is deleted below,
+    # the float16 weights are freed for the float32 control)
+    row = timed_run(torch, ops, f"{label} fp16 prefill",
+                    lambda: prefill(params, cfg, x), launches, 3, card, held,
+                    phase="15")
+    row.update(config=cfg.name, layers=n_layers, batch=B, seq=S,
+               tokens_per_s=B * S / (row["ms"] / 1e3))
+    log(f"{where} prefill: B {B} x S {S} {row['ms']:.3f} ms (device "
+        f"{fmt_ms(row.get('device_ms'))}) = {row['tokens_per_s']:.1f} "
+        f"tokens/s; peak device memory {row['peak_bytes'] / 2**30:.3f} GiB; "
+        f"idle share {row['idle_share']}; launches {row['launches']} "
+        f"[{card}]")
+
+    def recorded(p, c, inputs, plain):
+        with contextlib.ExitStack() as stack:
+            if plain:
+                plain_versions(ops, ref, stack)
+            rr = stack.enter_context(RouteRecorder(layers))
+            with torch.no_grad():
+                h, lg = prefill(p, c, inputs)
+        out = (h.float().reshape(B * S, -1), lg.float().reshape(
+            B * F16_LOGIT_ROWS, -1), rr)
+        del h, lg
+        return out
+
+    h_k, l_k, r_k = recorded(params, cfg, x, False)
+    h_p, l_p, r_p = recorded(params, cfg, x, True)
+    steps = None
+    if decode:
+        Bd, slots = DECODE_BATCH, cache_seq_len(S)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        st0 = models.init_decode_state(cfg, Bd, slots, torch.float16,
+                                       length=S, device=device)
+        for cache in (st0.k_cache, st0.v_cache):
+            cache[:, :, :S] = torch.randn(
+                cache[:, :, :S].shape, generator=gen, device=device,
+                dtype=torch.float32).to(torch.float16)
+        toks = host_inputs(torch, cfg, Bd, F16_DECODE_STEPS, seed + 1) \
+            .to(device)
+
+        def run_steps(p, c, st, plain):
+            out = []
+            with contextlib.ExitStack() as stack:
+                if plain:
+                    plain_versions(ops, ref, stack)
+                with torch.no_grad():
+                    for t in range(F16_DECODE_STEPS):
+                        lg, st = models.decode_step(p, c, st, toks[:, t])
+                        out.append(lg.float())
+            return torch.cat(out)
+
+        def fresh(dtype):
+            return st0._replace(k_cache=st0.k_cache.to(dtype, copy=True),
+                                v_cache=st0.v_cache.to(dtype, copy=True))
+
+        steps = {"kernels": run_steps(params, cfg, fresh(torch.float16),
+                                      False),
+                 "plain": run_steps(params, cfg, fresh(torch.float16), True)}
+    # the control: the plain versions in float32 on the widened weights
+    params32 = _map_leaves(params, lambda t: t.float()
+                           if t.dtype == torch.float16 else t)
+    del params
+    torch.cuda.empty_cache()
+    h_32, l_32, r_32 = recorded(params32, cfg32, x.float() if
+                                x.is_floating_point() else x, True)
+    if decode:
+        steps["float32"] = run_steps(params32, cfg32, fresh(torch.float32),
+                                     True)
+    del params32
+    torch.cuda.empty_cache()
+    rows = torch.ones(B * S, dtype=torch.bool)
+    routes = {}
+    if cfg.is_moe:
+        same_k, swapped_k = held_rows(r_k, r_p, capacity)
+        same_c, swapped_c = held_rows(r_p, r_32, capacity)
+        rows = same_k & same_c
+        routes = {"swapped_kernels": swapped_k, "swapped_control": swapped_c,
+                  "rows_held": int(rows.sum())}
+        check(swapped_k <= F16_CONTROL_MARGIN * max(swapped_c, 1),
+              f"{where}: the kernels swap {swapped_k} tokens' experts, over "
+              f"{F16_CONTROL_MARGIN} x the control's {swapped_c}")
+        check(int(rows.sum()) >= B * S // 2, f"{where}: {int(rows.sum())} of "
+              f"{B * S} tokens held")
+    errs = {}
+    last = rows.reshape(B, S)[:, -F16_LOGIT_ROWS:].reshape(-1)
+    for name, got, plain, f32v, keep in (("hidden", h_k, h_p, h_32, rows),
+                                         ("logits", l_k, l_p, l_32, last)):
+        check(bool(torch.isfinite(got).all()) and
+              bool(torch.isfinite(plain).all()),
+              f"{where}: {name} non-finite (kernels or plain float16)")
+        err = float((got[keep] - plain[keep]).abs().max())
+        control = float((plain[keep] - f32v[keep]).abs().max())
+        errs[name] = {"max_abs_err": err, "control": control,
+                      "max_abs": float(f32v.abs().max())}
+        check(err <= F16_CONTROL_MARGIN * control, f"{where}: {name} "
+              f"kernels vs plain {err:.3g}, over {F16_CONTROL_MARGIN} x the "
+              f"control {control:.3g} (plain float16 vs plain float32)")
+    greedy = {"kernels": greedy_hold(l_k[last], l_p[last],
+                                     f"{where} greedy tokens"),
+              "control": greedy_hold(l_p[last], l_32[last],
+                                     f"{where} greedy tokens (control)")}
+    out = {"prefill": row, "errors": errs, "greedy": greedy,
+           "routes": routes}
+    log(f"{where} ok: kernels == plain versions within "
+        f"{F16_CONTROL_MARGIN} x the float32 control (hidden "
+        f"{errs['hidden']['max_abs_err']:.3g} against control "
+        f"{errs['hidden']['control']:.3g}, last {F16_LOGIT_ROWS} positions' "
+        f"logits {errs['logits']['max_abs_err']:.3g} against "
+        f"{errs['logits']['control']:.3g}); greedy tokens differ at "
+        f"{greedy['kernels']['differ']} of {greedy['kernels']['tokens']}, "
+        f"all near ties (control {greedy['control']['differ']}); routes "
+        f"{routes} [{card}]")
+    if decode:
+        err = float((steps["kernels"] - steps["plain"]).abs().max())
+        control = float((steps["plain"] - steps["float32"]).abs().max())
+        check(bool(torch.isfinite(steps["kernels"]).all()),
+              f"{where} decode: non-finite logits")
+        check(err <= F16_CONTROL_MARGIN * control, f"{where} decode: logits "
+              f"kernels vs plain {err:.3g}, over {F16_CONTROL_MARGIN} x the "
+              f"control {control:.3g}")
+        dgreedy = {"kernels": greedy_hold(steps["kernels"], steps["plain"],
+                                          f"{where} decode greedy tokens"),
+                   "control": greedy_hold(steps["plain"], steps["float32"],
+                                          f"{where} decode greedy tokens "
+                                          f"(control)")}
+        out["decode_hold"] = {"max_abs_err": err, "control": control,
+                              "greedy": dgreedy}
+        log(f"{where} decode ok: {F16_DECODE_STEPS} teacher-forced steps at "
+            f"B {Bd} from length {S}, logits kernels vs plain {err:.3g} "
+            f"against control {control:.3g}; greedy tokens differ at "
+            f"{dgreedy['kernels']['differ']} of "
+            f"{dgreedy['kernels']['tokens']} (control "
+            f"{dgreedy['control']['differ']}) [{card}]")
+        # timed: the kernels' step, the cache rebuilt in float16
+        params = models.init_params(cfg, seed, device=device)
+        box = [fresh(torch.float16)]
+        tok = toks[:, 0]
+
+        def step():
+            lg, box[0] = models.decode_step(params, cfg, box[0], tok)
+            return (lg,)
+
+        with torch.no_grad():
+            step()
+            drow = timed_run(torch, ops, f"{label} fp16 decode", step,
+                             {**dict.fromkeys(KERNEL_PREFIX, 0),
+                              "decode_attention": n_layers,
+                              "rmsnorm": 2 * n_layers + 1}, 8, card, held,
+                             phase="15")
+        drow.update(config=cfg.name, layers=n_layers, batch=Bd,
+                    cache_slots=slots, length=S,
+                    tokens_per_s=Bd / (drow["ms"] / 1e3))
+        log(f"{where} decode: B {Bd} against {slots} cache slots from "
+            f"length {S}: {drow['ms']:.3f} ms a step (device "
+            f"{fmt_ms(drow.get('device_ms'))}, "
+            f"{drow['tokens_per_s']:.1f} tokens/s); peak device memory "
+            f"{drow['peak_bytes'] / 2**30:.3f} GiB; idle share "
+            f"{drow['idle_share']}; launches {drow['launches']} [{card}]")
+        out["decode"] = drow
+        del params, box
+    if decode:
+        del st0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_float16(torch, device, card: str, held: set) -> dict:
+    """Phase 15: llama3.2-3b (28 layers, prefill and decode), mamba2-780m
+    (48 layers) and phi3.5-moe (8 layers) in float16 at full width
+    (``f16_hold``); (d), the open domains at the ops level, are phase 6's
+    last cases."""
+    out = {}
+    seed = MODEL15_SEED
+    for label, module, n_layers, decode in MODEL15_RUNS:
+        seed += 1
+        out[label] = f16_hold(torch, device, label, module, n_layers, decode,
+                              seed, card, held)
+    return out
+
+
 def main_grid(n: int) -> dict:
     from repro_torch.core.scenarios import scenario_grid
     from repro_torch.core.sweep_engine import tile_grid
@@ -5658,6 +6074,34 @@ def main() -> int:
              for label, row in last["timed"].items()
              if row["launches"][name]})
         by_name[name]["launches"] = last["timed"][newest]["launches"][name]
+
+    # phase 15: llama3.2-3b, mamba2-780m and phi3.5-moe in float16 at full
+    # width, each held against the plain versions within a float32
+    # control; (d), the open domains at the ops level, are phase 6's last
+    # cases.  B4-B8 counted
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f16 = phase_float16(torch, device, card,
+                        set().union(*(e["held"] for e in k_model)))
+    timed16 = {}
+    for label, r in f16.items():
+        timed16[f"{label} fp16 prefill"] = r["prefill"]
+        if "decode" in r:
+            timed16[f"{label} fp16 decode"] = r["decode"]
+    log(f"phase 15 ok: {time.perf_counter() - t0:.2f} s, "
+        + json.dumps({k: {m: r[m] for m in ("ms", "device_ms",
+                                             "tokens_per_s", "peak_bytes",
+                                             "idle_share", "launches")}
+                      for k, r in timed16.items()}) + f" [{card}]")
+    for name, newest in (("rmsnorm", "llama3.2-3b fp16 prefill"),
+                         ("flash_attention", "llama3.2-3b fp16 prefill"),
+                         ("decode_attention", "llama3.2-3b fp16 decode"),
+                         ("grouped_matmul", "phi3.5-moe fp16 prefill"),
+                         ("ssd_scan", "mamba2-780m fp16 prefill")):
+        by_name[name]["launches_by_path"].update(
+            {f"{label} (phase 15)": row["launches"][name]
+             for label, row in timed16.items() if row["launches"][name]})
+        by_name[name]["launches"] = timed16[newest]["launches"][name]
 
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",

@@ -2,25 +2,37 @@
 // decode_attention, flash_attention, ssd_scan): the dtype codes the C
 // entry points take, float <-> storage conversions, vector loads that
 // widen a run of elements to float32, and the PTX wrappers of the
-// tensor-core kernels (mma.sync in bf16 and in split TF32, ldmatrix,
-// cp.async) with the bf16 packing and TF32 splitting they feed on.
+// tensor-core kernels (mma.sync in bf16 / fp16 and in split TF32,
+// ldmatrix, cp.async) with the 16-bit packing and TF32 splitting they
+// feed on.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // dtype codes passed by the Python wrappers
 #define DT_F32 0
 #define DT_BF16 1
+#define DT_F16 2
 
 // the Pallas kernels' finite mask value
 #define NEG_INF (-1e30f)
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
+
+// whether T is one of the two 16-bit storage types (bf16, fp16)
+template <typename T>
+constexpr bool is_b16 =
+    std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(f16 v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -31,11 +43,42 @@ template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
+// round to nearest even, as JAX's .astype(float16)
+template <>
+__device__ __forceinline__ f16 from_f<f16>(float v) {
+  return __float2half_rn(v);
+}
 
 // two bf16 packed in one 32-bit word -> two floats (exact)
 __device__ __forceinline__ void bf16x2_to_f(uint32_t w, float* o) {
   o[0] = __uint_as_float(w << 16);
   o[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+// two 16-bit values of type T packed in one word (low half first) -> two
+// floats (exact)
+template <typename T>
+__device__ __forceinline__ void b16x2_to_f(uint32_t w, float* o) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    bf16x2_to_f(w, o);
+  } else {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+    o[0] = f.x;
+    o[1] = f.y;
+  }
+}
+
+// a float pair -> two T in one word (low half = x), rounded to nearest
+// even
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __half2 h = __floats2half2_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
 }
 
 // N consecutive elements starting at p, widened to float.  p must be
@@ -61,29 +104,38 @@ __device__ __forceinline__ void load_f(const float* p, float* o) {
   }
 }
 
-template <int N>
-__device__ __forceinline__ void load_f(const bf16* p, float* o) {
+template <int N, typename T>
+__device__ __forceinline__ void load_b16(const T* p, float* o) {
   if constexpr (N % 8 == 0) {
 #pragma unroll
     for (int i = 0; i < N; i += 8) {
       const uint4 v = *reinterpret_cast<const uint4*>(p + i);
-      bf16x2_to_f(v.x, o + i); bf16x2_to_f(v.y, o + i + 2);
-      bf16x2_to_f(v.z, o + i + 4); bf16x2_to_f(v.w, o + i + 6);
+      b16x2_to_f<T>(v.x, o + i); b16x2_to_f<T>(v.y, o + i + 2);
+      b16x2_to_f<T>(v.z, o + i + 4); b16x2_to_f<T>(v.w, o + i + 6);
     }
   } else if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < N; i += 4) {
       const uint2 v = *reinterpret_cast<const uint2*>(p + i);
-      bf16x2_to_f(v.x, o + i); bf16x2_to_f(v.y, o + i + 2);
+      b16x2_to_f<T>(v.x, o + i); b16x2_to_f<T>(v.y, o + i + 2);
     }
   } else if constexpr (N % 2 == 0) {
 #pragma unroll
     for (int i = 0; i < N; i += 2)
-      bf16x2_to_f(*reinterpret_cast<const uint32_t*>(p + i), o + i);
+      b16x2_to_f<T>(*reinterpret_cast<const uint32_t*>(p + i), o + i);
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i] = to_f(p[i]);
   }
+}
+
+template <int N>
+__device__ __forceinline__ void load_f(const bf16* p, float* o) {
+  load_b16<N>(p, o);
+}
+template <int N>
+__device__ __forceinline__ void load_f(const f16* p, float* o) {
+  load_b16<N>(p, o);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -108,22 +160,28 @@ __device__ __forceinline__ void store_f(float* p, const float* v) {
   }
 }
 
-template <int N>
-__device__ __forceinline__ void store_f(bf16* p, const float* v) {
+template <int N, typename T>
+__device__ __forceinline__ void store_b16(T* p, const float* v) {
   if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < N; i += 4) {
-      const __nv_bfloat162 a = __floats2bfloat162_rn(v[i], v[i + 1]);
-      const __nv_bfloat162 b = __floats2bfloat162_rn(v[i + 2], v[i + 3]);
       uint2 w;
-      w.x = *reinterpret_cast<const uint32_t*>(&a);
-      w.y = *reinterpret_cast<const uint32_t*>(&b);
+      w.x = pack2<T>(v[i], v[i + 1]);
+      w.y = pack2<T>(v[i + 2], v[i + 3]);
       *reinterpret_cast<uint2*>(p + i) = w;
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < N; ++i) p[i] = __float2bfloat16_rn(v[i]);
+    for (int i = 0; i < N; ++i) p[i] = from_f<T>(v[i]);
   }
+}
+template <int N>
+__device__ __forceinline__ void store_f(bf16* p, const float* v) {
+  store_b16<N>(p, v);
+}
+template <int N>
+__device__ __forceinline__ void store_f(f16* p, const float* v) {
+  store_b16<N>(p, v);
 }
 
 // ---------------------------------------------------------------------------
@@ -144,6 +202,28 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the same product with fp16 operands (each product of two fp16 is exact
+// in float32 too)
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mma_bf16 or mma_f16 by the operands' 16-bit type T
+template <typename T>
+__device__ __forceinline__ void mma16(float* c, const uint32_t* a,
+                                      const uint32_t* b) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    mma_bf16(c, a, b);
+  } else {
+    mma_f16(c, a, b);
+  }
 }
 
 // c += a b on the tensor cores in TF32: a 16 x 8 A fragment (row-major),
@@ -206,6 +286,20 @@ __device__ __forceinline__ void pack_bf16_hi_lo(float x, float y,
   hi = pack_bf16(x, y);
   bf16x2_to_f(hi, hf);  // exact: float(hi)
   lo = pack_bf16(x - hf[0], y - hf[1]);
+}
+
+// the same split in the 16-bit type T: hi = T(x), lo = T(x - hi)
+template <typename T>
+__device__ __forceinline__ void pack2_hi_lo(float x, float y, uint32_t& hi,
+                                            uint32_t& lo) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    pack_bf16_hi_lo(x, y, hi, lo);
+  } else {
+    float hf[2];
+    hi = pack2<T>(x, y);
+    b16x2_to_f<T>(hi, hf);  // exact: float(hi)
+    lo = pack2<T>(x - hf[0], y - hf[1]);
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -13,15 +13,22 @@
 // passes 0-d int32 tensors (no host synchronisation, as the TPU kernel's
 // scalar prefetch), or taken by value from Python ints.
 //
-// Head dims: any d that is a multiple of 8 from 8 to 256 on both routes
-// (the reference's kernel makes each block the full head dim, so it takes
-// any d).  Each route is instantiated for a few widths DH, and a call runs
-// the smallest DH >= d (float32: 8, 16, 32, 64, 128, 256; bf16: 64, 128,
-// 256) with the columns past d zero: loads past d are not issued (float32)
-// or zero-filled by TMA (bf16), and Q's columns past d are zero, so Q K^T
-// is the sum over d alone.  Output columns past d are never stored, and
-// the partials' rows are d wide.  The padded columns cost their share of
-// the work (d 80 runs DH 128): a known cost, not optimised.
+// Head dims: any d >= 1 (the reference's kernel makes each block the full
+// head dim, so it takes any d).  Each route is instantiated for a few
+// widths DH, and the caller (kernels/backend.py padded_head_dim, the one
+// width rule) passes the smallest DH >= d (fma: 8, 16, 32, 64, 128, 256;
+// mma: 64, 128, 256) with the columns past d zero: loads past d are not
+// issued (fma) or zero-filled by TMA (mma), and Q's columns past d are
+// zero, so Q K^T is the sum over d alone, and the scale is 1 / sqrt(d) of
+// the true d.  Output columns past d are never stored, and the partials'
+// rows are d wide.  The padded columns cost their share of the work (d 80
+// runs DH 128): a known cost, not optimised.  Above 256 the caller passes
+// DH 256 and the fma kernel splits the output's d across ceil(d / 256)
+// blocks (WIDE): each computes the whole q . k over d in 256-wide slices
+// and accumulates p v for its own 256 columns, so the scores are computed
+// ceil(d / 256) times.  Rows that TMA cannot read (a 16-bit d that is not
+// a multiple of 8, rows off 16-byte alignment) take the fma kernel too,
+// reading element by element: no padded copy of the cache is made.
 //
 // What bounds it: bytes.  Every valid K and V row is read once: at
 // llama3.2-3b (B 8, KV 8, d 128, bf16, length 6,000) that is 197 MB,
@@ -50,8 +57,10 @@
 // kernel combines a head's nsplit partials by log-sum-exp, divides by
 // max(l, 1e-30) and stores in q's dtype.
 //
-// bf16 (route "mma"): FlashDecoding with the GQA group as the M dimension
-// of the tensor-core tile, as FlashInfer runs GQA decode.
+// bf16 and fp16 (route "mma": d a multiple of 8 up to 256, TMA-readable
+// rows): FlashDecoding with the GQA group as the M dimension of the
+// tensor-core tile, as FlashInfer runs GQA decode; one kernel for both
+// 16-bit types (mma.sync m16n8k16 and TMA take either).
 //  - A block takes a sub-group of at most 16 query heads of one KV head
 //    (n_sub = ceil(g / 16) sub-groups, balanced), its rows zero-padded
 //    to 16 in shared memory.
@@ -70,17 +79,19 @@
 //    float32 accumulator takes 128 registers), K's B fragments come by
 //    ldmatrix from the swizzled tile (the 16-byte chunk c of row r sits
 //    at chunk c ^ (r % 8)).  The float32 scores are scaled by
-//    scale * log2(e) after the product (a bf16 q cannot carry the scale),
+//    scale * log2(e) after the product (a 16-bit q cannot carry the scale),
 //    positions outside [lo, hi) are set to -1e30 and their weights forced
 //    to 0, and the online softmax runs in base 2 in registers.  O += P V
-//    takes P as two bf16 terms, P_hi + P_lo (one bf16 P fails the bf16
+//    takes P as two 16-bit terms, P_hi + P_lo (one bf16 P fails the bf16
 //    limit, as for flash attention), against V's B fragments by
 //    ldmatrix.trans.
 //  - The four warps' (m, l, O) are merged through shared memory (the
 //    consumed ring) at the end.
 //
-// float32 (route "fma"): scalar IEEE float32 FMAs, whose 3e-5 tolerance
-// rules out bf16 and TF32 products.  One block of four warps per (split,
+// float32, and the 16-bit inputs the mma route does not take (route
+// "fma"): scalar IEEE float32 FMAs on the values widened to float32, whose
+// 3e-5 tolerance rules out bf16 and TF32 products.  One block of four
+// warps per (split, column block when WIDE,
 // sub-group of at most 8 query heads, sequence).  A row of d elements is
 // held by a lane group of LPR lanes, EPL elements a lane: for d >= 64 the
 // whole warp (LPR 32, EPL d / 32); below, four elements a lane (one
@@ -148,29 +159,49 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
+// EPL elements of a row from p (column c of d, c < d: the caller skips
+// a lane whose columns are all past d) widened to float: one vector load
+// when VEC (d a multiple of EPL, rows aligned), else one by one, zeros at
+// or past d
+template <int EPL, bool VEC, typename T>
+__device__ __forceinline__ void load_row(const T* p, int c, int d,
+                                         float* o) {
+  if constexpr (VEC) {
+    load_f<EPL>(p, o);
+  } else {
+#pragma unroll
+    for (int t = 0; t < EPL; ++t) o[t] = c + t < d ? to_f(p[t]) : 0.f;
+  }
+}
+
 // G: the block's sub-group size rounded up to 1, 2, 4 or 8 (gs <= G query
-// heads are live; the registers are sized by G).  Blocks (sp, n * n_sub +
-// sub, b): heads n g + sub gsz .. + gs - 1.
-template <int DH, int G>
+// heads are live; the registers are sized by G).  Blocks (sp, (n * n_sub +
+// sub) ncb + cb, b): heads n g + sub gsz .. + gs - 1, output columns
+// [cb DH, cb DH + DH) (ncb = ceil(d / DH) when WIDE, else 1).  T: the
+// storage type of q and the caches; VEC: vector loads (d a multiple of
+// EPL, rows aligned), else element loads.
+template <typename T, int DH, int G, bool WIDE, bool VEC>
 __global__ void __launch_bounds__(NW * 32)
-decode_partial_kernel(const float* __restrict__ q,
-                      const float* __restrict__ kc,
-                      const float* __restrict__ vc, long long kb, long long kp,
+decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                      const T* __restrict__ vc, long long kb, long long kp,
                       long long kn, long long vb, long long vp, long long vn,
                       int H, int K, int d, int g, int gsz, int n_sub,
                       int nsplit,
                       const int* len_dev, int len_host, const int* win_dev,
-                      int win_host, float scale, float* __restrict__ part_acc,
+                      int win_host, float scale,
+                      float* __restrict__ part_acc,
                       float* __restrict__ part_ml) {
   constexpr int EPL = Lanes<DH>::EPL, LPR = Lanes<DH>::LPR;
   constexpr int NG = Lanes<DH>::NG, NV = NW * NG;  // lane groups a block
   const int sp = blockIdx.x, b = blockIdx.z;
-  const int n = blockIdx.y / n_sub, sub = blockIdx.y % n_sub;
+  const int ncb = WIDE ? (d + DH - 1) / DH : 1;
+  const int cb = WIDE ? blockIdx.y % ncb : 0, c0 = cb * DH;
+  const int ny = WIDE ? blockIdx.y / ncb : blockIdx.y;
+  const int n = ny / n_sub, sub = ny % n_sub;
   const int h0 = n * g + sub * gsz, gs = min(gsz, g - sub * gsz);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPR, col = (lane % LPR) * EPL;
-  const bool live = col < d;       // EPL divides d: a lane's columns are
-                                   // all below d or all past it
+  const bool live = col < d;       // the lane's first column is below d
   const int vg = warp * NG + grp;  // the lane group's index in the block
   const Range r = split_range(len_dev ? *len_dev : len_host,
                               win_dev ? *win_dev : win_host, K, sp, nsplit);
@@ -183,41 +214,93 @@ decode_partial_kernel(const float* __restrict__ q,
     l[j] = 0.f;
 #pragma unroll
     for (int t = 0; t < EPL; ++t) acc[j][t] = qf[j][t] = 0.f;
-    if (j < gs && live) {
-      load_f<EPL>(q + ((long long)b * H + h0 + j) * d + col, qf[j]);
+    if (!WIDE && j < gs && live) {
+      load_row<EPL, VEC>(q + ((long long)b * H + h0 + j) * d + col, col, d,
+                         qf[j]);
 #pragma unroll
       for (int t = 0; t < EPL; ++t) qf[j][t] *= scale;
     }
   }
 
-  const float* kbase = kc + b * kb + n * kn + col;
-  const float* vbase = vc + b * vb + n * vn + col;
+  const T* kbase = kc + b * kb + n * kn + col;
+  const T* vbase = vc + b * vb + n * vn + col + c0;
   // the warp's step starts at pw, its lane group's at p0 = pw + grp U; the
   // loop runs while any group of the warp has a position
   for (int pw = lo + warp * NG * U; pw < hi; pw += NV * U) {
     const int p0 = pw + grp * U;
     // every K and V row of the step is requested before any is used
     float kr[U][EPL], vr[U][EPL];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (p0 + u < hi && live) {
-        load_f<EPL>(kbase + (long long)(p0 + u) * kp, kr[u]);
-        load_f<EPL>(vbase + (long long)(p0 + u) * vp, vr[u]);
-      } else {
-#pragma unroll
-        for (int t = 0; t < EPL; ++t) kr[u][t] = vr[u][t] = 0.f;
-      }
-    }
     float s[U][G];
+    if constexpr (WIDE) {
+      // q . k over all of d, a DH-wide slice of q and k at a time, each
+      // lane's share summed over the slices before the group's sum
 #pragma unroll
-    for (int u = 0; u < U; ++u)
+      for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        float d = 0.f;
+        for (int j = 0; j < G; ++j) s[u][j] = 0.f;
+      for (int d0 = 0; d0 < d; d0 += DH) {
 #pragma unroll
-        for (int t = 0; t < EPL; ++t) d = fmaf(qf[j][t], kr[u][t], d);
-        s[u][j] = group_sum<LPR>(d);
+        for (int u = 0; u < U; ++u) {
+          if (p0 + u < hi && col < d - d0) {
+            load_row<EPL, VEC>(kbase + (long long)(p0 + u) * kp + d0, col,
+                               d - d0, kr[u]);
+          } else {
+#pragma unroll
+            for (int t = 0; t < EPL; ++t) kr[u][t] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          if (j < gs && col < d - d0) {
+            load_row<EPL, VEC>(
+                q + ((long long)b * H + h0 + j) * d + d0 + col, col, d - d0,
+                qf[j]);
+#pragma unroll
+            for (int t = 0; t < EPL; ++t) qf[j][t] *= scale;
+          } else {
+#pragma unroll
+            for (int t = 0; t < EPL; ++t) qf[j][t] = 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int t = 0; t < EPL; ++t)
+              s[u][j] = fmaf(qf[j][t], kr[u][t], s[u][j]);
+        }
       }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) s[u][j] = group_sum<LPR>(s[u][j]);
+        if (p0 + u < hi && col < d - c0) {
+          load_row<EPL, VEC>(vbase + (long long)(p0 + u) * vp, col, d - c0,
+                             vr[u]);
+        } else {
+#pragma unroll
+          for (int t = 0; t < EPL; ++t) vr[u][t] = 0.f;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (p0 + u < hi && live) {
+          load_row<EPL, VEC>(kbase + (long long)(p0 + u) * kp, col, d, kr[u]);
+          load_row<EPL, VEC>(vbase + (long long)(p0 + u) * vp, col, d, vr[u]);
+        } else {
+#pragma unroll
+          for (int t = 0; t < EPL; ++t) kr[u][t] = vr[u][t] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          float dot = 0.f;
+#pragma unroll
+          for (int t = 0; t < EPL; ++t) dot = fmaf(qf[j][t], kr[u][t], dot);
+          s[u][j] = group_sum<LPR>(dot);
+        }
+    }
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       // a group past hi has no valid position: m stays, alpha is 1
@@ -254,8 +337,9 @@ decode_partial_kernel(const float* __restrict__ q,
     for (int t = 0; t < EPL; ++t) sm_acc[vg][j][col + t] = acc[j][t];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < gs * d; idx += NW * 32) {
-    const int j = idx / d, c = idx % d;
+  const int dw = WIDE ? min(DH, d - c0) : d;  // the block's columns
+  for (int idx = threadIdx.x; idx < gs * dw; idx += NW * 32) {
+    const int j = idx / dw, c = idx % dw;
     float M = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NV; ++w) M = fmaxf(M, sm_m[w][j]);
@@ -267,8 +351,8 @@ decode_partial_kernel(const float* __restrict__ q,
       A += sm_acc[w][j][c] * f;
     }
     const long long head = ((long long)b * H + h0 + j) * nsplit + sp;
-    part_acc[head * d + c] = A;
-    if (c == 0) {
+    part_acc[head * d + c0 + c] = A;
+    if (c == 0 && (!WIDE || cb == 0)) {
       part_ml[head * 2] = M;
       part_ml[head * 2 + 1] = L;
     }
@@ -276,7 +360,7 @@ decode_partial_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: TMA ring, mma.sync
+// bf16 and fp16: TMA ring, mma.sync
 // ---------------------------------------------------------------------------
 
 #define NCW 4                 // consumer warps, 16 positions of a tile each
@@ -301,11 +385,12 @@ struct Cfg {
                 "the merge must fit in the consumed ring");
 };
 
-template <int DH>
+// T: bf16 or fp16
+template <typename T, int DH>
 __global__ void __launch_bounds__(NT, Cfg<DH>::MINB)
-decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
+decode_b16_kernel(__grid_constant__ const CUtensorMap tk,
                    __grid_constant__ const CUtensorMap tv,
-                   const bf16* __restrict__ q, int H, int K, int d, int g,
+                   const T* __restrict__ q, int H, int K, int d, int g,
                    int gsz, int n_sub, int nsplit, const int* len_dev,
                    int len_host,
                    const int* win_dev, int win_host, float scale_log2,
@@ -316,7 +401,7 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16(*qs)[C::QP] = reinterpret_cast<bf16(*)[C::QP]>(ring + C::RING);
+  T(*qs)[C::QP] = reinterpret_cast<T(*)[C::QP]>(ring + C::RING);
   uint64_t* full =
       reinterpret_cast<uint64_t*>(ring + C::RING + MMA_G * C::QP * 2);
   uint64_t* empty = full + C::STAGES;
@@ -406,7 +491,7 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
     // step.  V's transposed B fragments: positions lane % 16, chunk
     // lane / 16 of each 16 columns.  Every row a lane addresses has
     // r % 8 == lane % 8, which the swizzle XORs into the chunk.
-    const bf16* q_frag = &qs[lane % 16][(lane / 16) * 8];
+    const T* q_frag = &qs[lane % 16][(lane / 16) * 8];
     const int sw = lane & 7;
     const int k_row = (warp * 16 + lane % 8 + (lane / 16) * 8) * 128;
     const int k_ch = (lane / 8) % 2;
@@ -446,8 +531,8 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
           }
           const int ch = ((kk & 3) * 2 + k_ch) ^ sw;
           ldmatrix_x4(bb, kt + (kk >> 2) * C::BOX + k_row + ch * 16);
-          mma_bf16(sc[0], a, bb);
-          mma_bf16(sc[1], a, bb + 2);
+          mma16<T>(sc[0], a, bb);
+          mma16<T>(sc[1], a, bb + 2);
         }
 
         // scores in base-2 units; masked ones at -1e30, their weights 0
@@ -499,19 +584,19 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
         // S fragments: rows g (positions 2t, 2t + 1, then 2t + 8, 2t + 9)
         // from sc[0][0..1] and sc[1][0..1], rows g + 8 from [2..3]
         uint32_t hi[4], lo[4];
-        pack_bf16_hi_lo(sc[0][0], sc[0][1], hi[0], lo[0]);
-        pack_bf16_hi_lo(sc[0][2], sc[0][3], hi[1], lo[1]);
-        pack_bf16_hi_lo(sc[1][0], sc[1][1], hi[2], lo[2]);
-        pack_bf16_hi_lo(sc[1][2], sc[1][3], hi[3], lo[3]);
+        pack2_hi_lo<T>(sc[0][0], sc[0][1], hi[0], lo[0]);
+        pack2_hi_lo<T>(sc[0][2], sc[0][3], hi[1], lo[1]);
+        pack2_hi_lo<T>(sc[1][0], sc[1][1], hi[2], lo[2]);
+        pack2_hi_lo<T>(sc[1][2], sc[1][3], hi[3], lo[3]);
 #pragma unroll
         for (int dj = 0; dj < NO / 2; ++dj) {
           uint32_t bb[4];
           const int ch = ((dj & 3) * 2 + v_ch) ^ sw;
           ldmatrix_x4_trans(bb, vt + (dj >> 2) * C::BOX + v_row + ch * 16);
-          mma_bf16(acc[2 * dj], hi, bb);
-          mma_bf16(acc[2 * dj], lo, bb);
-          mma_bf16(acc[2 * dj + 1], hi, bb + 2);
-          mma_bf16(acc[2 * dj + 1], lo, bb + 2);
+          mma16<T>(acc[2 * dj], hi, bb);
+          mma16<T>(acc[2 * dj], lo, bb);
+          mma16<T>(acc[2 * dj + 1], hi, bb + 2);
+          mma16<T>(acc[2 * dj + 1], lo, bb + 2);
         }
       }
       __syncwarp();  // every lane has read the stage
@@ -572,15 +657,17 @@ decode_bf16_kernel(__grid_constant__ const CUtensorMap tk,
 // combine, launch
 // ---------------------------------------------------------------------------
 
-// one block of dh threads per (sequence, query head); m in base-2 units
-// from the bf16 kernel (BASE2), natural units from the float32 one
+// a thread per output column: blocks (sequence x query head, a block of
+// at most 1,024 columns); m in base-2 units from the mma kernel (BASE2),
+// natural units from the fma one
 template <typename T, bool BASE2>
 __global__ void decode_combine_kernel(const float* __restrict__ part_acc,
                                       const float* __restrict__ part_ml,
                                       T* __restrict__ out, int nsplit,
                                       int dh) {
   const long long bh = blockIdx.x;
-  const int c = threadIdx.x;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (c >= dh) return;
   const float* ml = part_ml + bh * nsplit * 2;
   const float* pa = part_acc + bh * nsplit * dh + c;
   float M = NEG_INF;
@@ -601,8 +688,8 @@ static void sub_groups(int g, int most, int* n_sub, int* gsz) {
   *gsz = (g + *n_sub - 1) / *n_sub;
 }
 
-template <int DH, int G>
-static cudaError_t launch_f32(const void* q, const void* k, const void* v,
+template <typename T, int DH, int G, bool WIDE, bool VEC>
+static cudaError_t launch_fma(const void* q, const void* k, const void* v,
                               const long long* ks, const long long* vs,
                               int B, int H, int KV, int K, int nsplit,
                               const int* len_dev, int len_host,
@@ -612,23 +699,26 @@ static cudaError_t launch_f32(const void* q, const void* k, const void* v,
   const int g = H / KV;
   int n_sub, gsz;
   sub_groups(g, FMA_G, &n_sub, &gsz);
-  const dim3 grid(nsplit, KV * n_sub, B);
-  decode_partial_kernel<DH, G><<<grid, NW * 32, 0, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, ks[0], ks[1], ks[2],
-      vs[0], vs[1], vs[2], H, K, d, g, gsz, n_sub, nsplit, len_dev, len_host,
+  const long long ncb = WIDE ? (d + DH - 1) / DH : 1;
+  if ((long long)KV * n_sub * ncb > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(nsplit, (unsigned)(KV * n_sub * ncb), B);
+  decode_partial_kernel<T, DH, G, WIDE, VEC><<<grid, NW * 32, 0, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, ks[0], ks[1], ks[2], vs[0],
+      vs[1], vs[2], H, K, d, g, gsz, n_sub, nsplit, len_dev, len_host,
       win_dev, win_host, scale, part_acc, part_ml);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<float, false><<<B * H, d, 0, st>>>(
-      part_acc, part_ml, (float*)out, nsplit, d);
+  const dim3 cgrid(B * H, (d + 1023) / 1024);
+  decode_combine_kernel<T, false><<<cgrid, d < 1024 ? d : 1024, 0, st>>>(
+      part_acc, part_ml, (T*)out, nsplit, d);
   return cudaGetLastError();
 }
 
-// a cache (B, K, KV, d) with element strides {batch, position, head} as
-// the 4-D map (d, KV, K, B), read in boxes of 64 x 1 x BK x 1 (zero-filled
-// past d and K)
+// a cache (B, K, KV, d) of 16-bit elements (fp16 when f16) with element
+// strides {batch, position, head} as the 4-D map (d, KV, K, B), read in
+// boxes of 64 x 1 x BK x 1 (zero-filled past d and K)
 static int encode_cache(CUtensorMap* map, const void* base, int B, int K,
-                        int KV, int d, const long long* strides) {
+                        int KV, int d, const long long* strides, bool f16) {
   if (strides[0] < 0 || strides[1] < 0 || strides[2] < 0)
     return (int)cudaErrorInvalidValue;
   const uint64_t dims[4] = {(uint64_t)d, (uint64_t)KV, (uint64_t)K,
@@ -637,42 +727,44 @@ static int encode_cache(CUtensorMap* map, const void* base, int B, int K,
                              (uint64_t)strides[1] * 2,
                              (uint64_t)strides[0] * 2};
   const uint32_t box[4] = {64, 1, BK, 1};
-  return encode_bf16<4>(map, base, dims, bytes, box);
+  return encode_b16<4>(map, base, dims, bytes, box, f16);
 }
 
-template <int DH>
-static cudaError_t set_smem_bf16() {
-  return cudaFuncSetAttribute(decode_bf16_kernel<DH>,
+template <typename T, int DH>
+static cudaError_t set_smem_mma() {
+  return cudaFuncSetAttribute(decode_b16_kernel<T, DH>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               Cfg<DH>::SMEM);
 }
 
-template <int DH>
-static cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                               const long long* ks, const long long* vs,
-                               int B, int H, int KV, int K, int nsplit,
-                               const int* len_dev, int len_host,
-                               const int* win_dev, int win_host, float scale,
-                               float* part_acc, float* part_ml, void* out,
-                               int d, cudaStream_t st) {
+template <typename T, int DH>
+static cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                              const long long* ks, const long long* vs,
+                              int B, int H, int KV, int K, int nsplit,
+                              const int* len_dev, int len_host,
+                              const int* win_dev, int win_host, float scale,
+                              float* part_acc, float* part_ml, void* out,
+                              int d, cudaStream_t st) {
+  if (d % 8 != 0 || d > DH) return cudaErrorInvalidValue;
   const int g = H / KV;
   int n_sub, gsz;
   sub_groups(g, MMA_G, &n_sub, &gsz);
+  const bool half = std::is_same<T, f16>::value;
   CUtensorMap tk, tv;
-  int rc = encode_cache(&tk, k, B, K, KV, d, ks);
-  if (rc == 0) rc = encode_cache(&tv, v, B, K, KV, d, vs);
+  int rc = encode_cache(&tk, k, B, K, KV, d, ks, half);
+  if (rc == 0) rc = encode_cache(&tv, v, B, K, KV, d, vs, half);
   if (rc != 0) return (cudaError_t)rc;
-  cudaError_t err = set_smem_bf16<DH>();
+  cudaError_t err = set_smem_mma<T, DH>();
   if (err != cudaSuccess) return err;
   const dim3 grid(nsplit, KV * n_sub, B);
-  decode_bf16_kernel<DH><<<grid, NT, Cfg<DH>::SMEM, st>>>(
-      tk, tv, (const bf16*)q, H, K, d, g, gsz, n_sub, nsplit, len_dev,
+  decode_b16_kernel<T, DH><<<grid, NT, Cfg<DH>::SMEM, st>>>(
+      tk, tv, (const T*)q, H, K, d, g, gsz, n_sub, nsplit, len_dev,
       len_host, win_dev, win_host, (float)(scale * 1.4426950408889634),
       part_acc, part_ml);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<bf16, true><<<B * H, d, 0, st>>>(
-      part_acc, part_ml, (bf16*)out, nsplit, d);
+  decode_combine_kernel<T, true><<<B * H, d, 0, st>>>(
+      part_acc, part_ml, (T*)out, nsplit, d);
   return cudaGetLastError();
 }
 
@@ -684,56 +776,82 @@ static int f32_tier(int g) {
   return gsz <= 1 ? 1 : gsz <= 2 ? 2 : gsz <= 4 ? 4 : 8;
 }
 
-// the width a head dim d (a multiple of 8 in 8..256) runs at: the
-// smallest instantiated DH >= d of dtype dt's route; 0 outside the domain
-static int padded_dh(int d, int dt) {
-  if (d < 8 || d > 256 || d % 8 != 0) return 0;
-  if (dt == DT_BF16) return d <= 64 ? 64 : d <= 128 ? 128 : 256;
-  return d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64
-       : d <= 128 ? 128 : 256;
-}
+// route codes, as kernels/decode_attention.py passes them
+#define ROUTE_FMA 0
+#define ROUTE_MMA 1
 
-// How many blocks of the kernel a call with head size dh, group g and
-// dtype dt launches fit on one SM at once (the host's `resident` is this
-// times the SM count).  0 or a cudaError_t.
-extern "C" int decode_attention_blocks_per_sm(int dh, int g, int dt,
+// CALL(T, DH, G, WIDE, VEC) for the fma route's (dh, DH, g, vec): DH one
+// of 8, 16, 32, 64, 128, 256 (dh <= DH), or 256 with dh > 256 (WIDE); G
+// the tier of g; VEC where vec allows it and dh is a multiple of the
+// lanes' EPL (float32 only: the 16-bit types take this route where their
+// rows are not TMA-readable, and read them element by element).
+// Evaluates to `return CALL(...)`, or falls through.
+#define FMA_DISPATCH(T, CALL)                                               \
+  {                                                                         \
+    const int tier = f32_tier(g);                                           \
+    if (dh > DH) {                                                          \
+      if (DH == 256) {                                                      \
+        if constexpr (std::is_same<T, float>::value) {                      \
+          if (vec && dh % 8 == 0) FMA_TIERS(T, 256, true, true, CALL);      \
+        }                                                                   \
+        FMA_TIERS(T, 256, true, false, CALL);                               \
+      }                                                                     \
+    } else {                                                                \
+      switch (DH) {                                                         \
+        case 8: FMA_VEC(T, 8, CALL);                                        \
+        case 16: FMA_VEC(T, 16, CALL);                                      \
+        case 32: FMA_VEC(T, 32, CALL);                                      \
+        case 64: FMA_VEC(T, 64, CALL);                                      \
+        case 128: FMA_VEC(T, 128, CALL);                                    \
+        case 256: FMA_VEC(T, 256, CALL);                                    \
+      }                                                                     \
+    }                                                                       \
+  }
+#define FMA_VEC(T, D, CALL)                                                 \
+  if constexpr (std::is_same<T, float>::value) {                            \
+    if (vec && dh % Lanes<D>::EPL == 0) FMA_TIERS(T, D, false, true, CALL); \
+  }                                                                         \
+  FMA_TIERS(T, D, false, false, CALL)
+#define FMA_TIERS(T, D, W, V, CALL)                                         \
+  {                                                                         \
+    if (tier == 1) CALL(T, D, 1, W, V);                                     \
+    if (tier == 2) CALL(T, D, 2, W, V);                                     \
+    if (tier == 4) CALL(T, D, 4, W, V);                                     \
+    CALL(T, D, 8, W, V);                                                    \
+  }
+
+// How many blocks of the kernel a call with head size dh run at width DH,
+// group g, dtype dt and route launches fit on one SM at once (the host's
+// `resident` is this times the SM count).  0 or a cudaError_t.
+extern "C" int decode_attention_blocks_per_sm(int dh, int DH, int g, int dt,
+                                              int route, int vec,
                                               int* blocks) {
   *blocks = 0;
-  if (g < 1) return (int)cudaErrorInvalidValue;
-  if (dt == DT_BF16) {
-#define DEC_OCC(D)                                                          \
+  if (g < 1 || dh < 1) return (int)cudaErrorInvalidValue;
+  if (route == ROUTE_MMA && (dt == DT_BF16 || dt == DT_F16) && dh <= DH) {
+#define DEC_OCC(T, D)                                                       \
   {                                                                         \
-    const cudaError_t err = set_smem_bf16<D>();                             \
+    const cudaError_t err = set_smem_mma<T, D>();                           \
     if (err != cudaSuccess) return (int)err;                                \
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
-        blocks, decode_bf16_kernel<D>, NT, Cfg<D>::SMEM);                   \
+        blocks, decode_b16_kernel<T, D>, NT, Cfg<D>::SMEM);                 \
   }
-    switch (padded_dh(dh, dt)) {
-      case 64: DEC_OCC(64);
-      case 128: DEC_OCC(128);
-      case 256: DEC_OCC(256);
-    }
+#define DEC_OCC_T(T)                  \
+  switch (DH) {                       \
+    case 64: DEC_OCC(T, 64);          \
+    case 128: DEC_OCC(T, 128);        \
+    case 256: DEC_OCC(T, 256);        \
+  }
+    if (dt == DT_BF16) DEC_OCC_T(bf16) else DEC_OCC_T(f16)
+#undef DEC_OCC_T
 #undef DEC_OCC
-  } else if (dt == DT_F32) {
-#define DEC_OCC(D, GG)                                                      \
+  } else if (route == ROUTE_FMA) {
+#define DEC_OCC(T, D, GG, W, V)                                             \
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(                \
-      blocks, decode_partial_kernel<D, GG>, NW * 32, 0)
-#define DEC_OCC_G(D)                  \
-  switch (f32_tier(g)) {              \
-    case 1: DEC_OCC(D, 1);            \
-    case 2: DEC_OCC(D, 2);            \
-    case 4: DEC_OCC(D, 4);            \
-    default: DEC_OCC(D, 8);           \
-  }
-    switch (padded_dh(dh, dt)) {
-      case 8: DEC_OCC_G(8);
-      case 16: DEC_OCC_G(16);
-      case 32: DEC_OCC_G(32);
-      case 64: DEC_OCC_G(64);
-      case 128: DEC_OCC_G(128);
-      case 256: DEC_OCC_G(256);
-    }
-#undef DEC_OCC_G
+      blocks, decode_partial_kernel<T, D, GG, W, V>, NW * 32, 0)
+    if (dt == DT_F32) FMA_DISPATCH(float, DEC_OCC)
+    else if (dt == DT_BF16) FMA_DISPATCH(bf16, DEC_OCC)
+    else if (dt == DT_F16) FMA_DISPATCH(f16, DEC_OCC)
 #undef DEC_OCC
   }
   return (int)cudaErrorInvalidValue;
@@ -743,48 +861,47 @@ extern "C" int decode_attention_blocks_per_sm(int dh, int g, int dt,
 // element strides {kb, kp, kn} / {vb, vp, vn} = {batch, position, head};
 // out (B, H, dh).  part_acc: B * H * nsplit * dh floats, part_ml:
 // B * H * nsplit * 2.  len_dev / win_dev: device int32 or NULL (then
-// len_host / win_host).  Any group H / KV.  dh a multiple of 8 from 8 to
-// 256 (run at padded_dh).  dt picks the route: DT_BF16 the TMA ring on
-// mma.sync (16-byte aligned caches with byte strides that are multiples
-// of 16), DT_F32 scalar FMAs.
+// len_host / win_host).  Any group H / KV.  Any dh >= 1, run at width DH
+// (the caller's padded_head_dim: the route's smallest width >= dh, or 256
+// for a wider dh on the fma route).  route: ROUTE_MMA (DT_BF16 or DT_F16;
+// dh % 8 == 0, the TMA ring on mma.sync: vec, i.e. 16-byte aligned q and
+// caches with byte strides that are multiples of 16) or ROUTE_FMA (any
+// dt: scalar FMAs, vector loads where vec allows, else element loads).
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, long long kb, long long kp,
     long long kn, long long vb, long long vp, long long vn, int B, int H,
-    int KV, int K, int dh, int nsplit, const int* len_dev, int len_host,
-    const int* win_dev, int win_host, float scale, float* part_acc,
-    float* part_ml, void* out, int dt, void* stream) {
+    int KV, int K, int dh, int DH, int nsplit, const int* len_dev,
+    int len_host, const int* win_dev, int win_host, float scale,
+    float* part_acc, float* part_ml, void* out, int dt, int route, int vec,
+    void* stream) {
   // the float32 route's sub-groups are the smaller: its grid is the taller
   if (B < 1 || KV < 1 || H < 1 || K < 1 || nsplit < 1 || H % KV != 0 ||
-      B > 65535 || (long long)KV * ((H / KV + FMA_G - 1) / FMA_G) > 65535)
+      dh < 1 || B > 65535 ||
+      (long long)KV * ((H / KV + FMA_G - 1) / FMA_G) > 65535)
     return (int)cudaErrorInvalidValue;
   const long long ks[3] = {kb, kp, kn}, vs[3] = {vb, vp, vn};
   cudaStream_t st = (cudaStream_t)stream;
+  const int g = H / KV;
 #define DEC_ARGS                                                            \
   q, k, v, ks, vs, B, H, KV, K, nsplit, len_dev, len_host, win_dev,         \
       win_host, scale, part_acc, part_ml, out, dh, st
-  if (dt == DT_BF16) {
-    switch (padded_dh(dh, dt)) {
-      case 64: return (int)launch_bf16<64>(DEC_ARGS);
-      case 128: return (int)launch_bf16<128>(DEC_ARGS);
-      case 256: return (int)launch_bf16<256>(DEC_ARGS);
-    }
-  } else if (dt == DT_F32) {
-#define DEC_F32(D)                                                          \
-  switch (f32_tier(H / KV)) {                                               \
-    case 1: return (int)launch_f32<D, 1>(DEC_ARGS);                         \
-    case 2: return (int)launch_f32<D, 2>(DEC_ARGS);                         \
-    case 4: return (int)launch_f32<D, 4>(DEC_ARGS);                         \
-    default: return (int)launch_f32<D, 8>(DEC_ARGS);                        \
+  if (route == ROUTE_MMA && vec) {
+#define DEC_MMA(T)                                                          \
+  switch (DH) {                                                             \
+    case 64: return (int)launch_mma<T, 64>(DEC_ARGS);                       \
+    case 128: return (int)launch_mma<T, 128>(DEC_ARGS);                     \
+    case 256: return (int)launch_mma<T, 256>(DEC_ARGS);                     \
   }
-    switch (padded_dh(dh, dt)) {
-      case 8: DEC_F32(8);
-      case 16: DEC_F32(16);
-      case 32: DEC_F32(32);
-      case 64: DEC_F32(64);
-      case 128: DEC_F32(128);
-      case 256: DEC_F32(256);
-    }
-#undef DEC_F32
+    if (dt == DT_BF16) DEC_MMA(bf16)
+    else if (dt == DT_F16) DEC_MMA(f16)
+#undef DEC_MMA
+  } else if (route == ROUTE_FMA) {
+#define DEC_FMA(T, D, GG, W, V)                                             \
+  return (int)launch_fma<T, D, GG, W, V>(DEC_ARGS)
+    if (dt == DT_F32) FMA_DISPATCH(float, DEC_FMA)
+    else if (dt == DT_BF16) FMA_DISPATCH(bf16, DEC_FMA)
+    else if (dt == DT_F16) FMA_DISPATCH(f16, DEC_FMA)
+#undef DEC_FMA
   }
 #undef DEC_ARGS
   return (int)cudaErrorInvalidValue;

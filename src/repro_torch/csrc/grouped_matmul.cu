@@ -12,8 +12,10 @@
 // alone (kernels/grouped_matmul.py, grouped_matmul_route); the entry
 // point refuses a route the input does not allow.
 //
-//  - wgmma (bf16, D % 8 == 0, F % 8 == 0, D > 0, x and w 16-byte
-//    aligned: what TMA's 16-byte strides and addresses need).  Bound by
+//  - wgmma (bf16 or fp16, D % 8 == 0, F % 8 == 0, D > 0, x and w 16-byte
+//    aligned: what TMA's 16-byte strides and addresses need).  fp16 runs
+//    the same kernel on fp16 operands (Hopper's wgmma and mma.sync take
+//    f16 at the same shapes and rates as bf16, float32 accumulate).  Bound by
 //    operations: at phi3.5-moe's expert up projection (E 16, C 640,
 //    D 4,096, F 6,400) the product is 5.37e11 flops, 0.543 ms at 989
 //    TFLOP/s, against 1.054 GB moved (x, w and out once each), 0.315 ms
@@ -34,7 +36,7 @@
 //    rows and columns.  With many small experts (kimi-k2: C 112,
 //    D 7,168, F 2,048) the bytes of w bound it instead, and the ring
 //    keeps 192 KB of them in flight on each SM.
-//  - mma_sync (every other bf16 input, e.g. a ragged D or F, or a view
+//  - mma_sync (every other bf16 or fp16 input, e.g. a ragged D or F, or a view
 //    off 16-byte alignment).  Eight warps on a 128 x 128 tile with
 //    mma.sync m16n8k16, 32-deep slices of x and w staged through
 //    registers into shared memory (w transposed), loads masked element
@@ -57,13 +59,15 @@
 #define BK 32
 #define PITCH (BK + 8)  // 40 bf16 = 20 words: conflict-free fragment reads
 
-// 8 consecutive bf16 from row-major src at (r, c) of an (R, Cn) matrix,
-// zero beyond the edges; vec: rows are 16-byte aligned and Cn % 8 == 0
-__device__ __forceinline__ uint4 load8(const bf16* src, int r, int c, int R,
+// 8 consecutive 16-bit elements from row-major src at (r, c) of an
+// (R, Cn) matrix, zero beyond the edges; vec: rows are 16-byte aligned and
+// Cn % 8 == 0
+template <typename T>
+__device__ __forceinline__ uint4 load8(const T* src, int r, int c, int R,
                                        int Cn, bool vec) {
   uint4 v = make_uint4(0, 0, 0, 0);
   if (r >= R) return v;
-  const bf16* p = src + (long long)r * Cn + c;
+  const T* p = src + (long long)r * Cn + c;
   if (vec && c + 8 <= Cn) return *reinterpret_cast<const uint4*>(p);
   unsigned short h[8];
   const unsigned short* ph = reinterpret_cast<const unsigned short*>(p);
@@ -76,14 +80,16 @@ __device__ __forceinline__ uint4 load8(const bf16* src, int r, int c, int R,
   return v;
 }
 
+// T: bf16 or fp16
+template <typename T>
 __global__ void __launch_bounds__(256)
-gmm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                bf16* __restrict__ out, int C, int D, int F, int vec) {
-  __shared__ __align__(16) bf16 As[BM][PITCH];  // x slice: [row][k]
-  __shared__ __align__(16) bf16 Bs[BN][PITCH];  // w slice, transposed: [n][k]
+gmm_b16_kernel(const T* __restrict__ x, const T* __restrict__ w,
+               T* __restrict__ out, int C, int D, int F, int vec) {
+  __shared__ __align__(16) T As[BM][PITCH];  // x slice: [row][k]
+  __shared__ __align__(16) T Bs[BN][PITCH];  // w slice, transposed: [n][k]
   const int e = blockIdx.z, c0 = blockIdx.y * BM, f0 = blockIdx.x * BN;
-  const bf16* xe = x + (long long)e * C * D;
-  const bf16* we = w + (long long)e * D * F;
+  const T* xe = x + (long long)e * C * D;
+  const T* we = w + (long long)e * D * F;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = warp / 4, wn = warp % 4;  // warp's 64 x 32 piece
   const int grp = lane / 4, tig = lane % 4;
@@ -150,7 +156,7 @@ gmm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+        for (int j = 0; j < 4; ++j) mma16<T>(acc[i][j], a[i], b[j]);
     }
     __syncthreads();
     if (more) {
@@ -159,7 +165,7 @@ gmm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
   }
 
-  bf16* oe = out + (long long)e * C * F;
+  T* oe = out + (long long)e * C * F;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -170,9 +176,9 @@ gmm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int h = 0; h < 2; ++h) {
         const int rr = r + 8 * h;
         if (rr >= C) continue;
-        if (n < F) oe[(long long)rr * F + n] = from_f<bf16>(acc[i][j][2 * h]);
+        if (n < F) oe[(long long)rr * F + n] = from_f<T>(acc[i][j][2 * h]);
         if (n + 1 < F)
-          oe[(long long)rr * F + n + 1] = from_f<bf16>(acc[i][j][2 * h + 1]);
+          oe[(long long)rr * F + n + 1] = from_f<T>(acc[i][j][2 * h + 1]);
       }
     }
 }
@@ -255,11 +261,13 @@ constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024 +
 
 // tx: x as (D, C, E), boxes of 64 x WG_BM; tw: w as (F, D, E), boxes of
 // 64 x 64.  One block per (C tile, F tile, expert), C tiles fastest.
+// T: bf16 or fp16.
+template <typename T>
 __global__ void __launch_bounds__(WG_THREADS, 1)
-gmm_bf16_wgmma_kernel(__grid_constant__ const CUtensorMap tx,
-                      __grid_constant__ const CUtensorMap tw,
-                      bf16* __restrict__ out, int C, int D, int F, int n_c,
-                      int n_f) {
+gmm_wgmma_kernel(__grid_constant__ const CUtensorMap tx,
+                 __grid_constant__ const CUtensorMap tw,
+                 T* __restrict__ out, int C, int D, int F, int n_c,
+                 int n_f) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -319,7 +327,7 @@ gmm_bf16_wgmma_kernel(__grid_constant__ const CUtensorMap tx,
 #pragma unroll
       for (int kk = 0; kk < WG_BK / 16; ++kk)
         // 16 k: 32 bytes on in x's rows, 16 rows (2,048 bytes) on in w's
-        wgmma_m64n256k16<1>(acc, da + 2 * kk, db + 128 * kk);
+        wgmma_m64n256k16<1, T>(acc, da + 2 * kk, db + 128 * kk);
       wgmma_commit();
       // the group before this one is done: hand its stage back
       wgmma_wait<1>();
@@ -331,7 +339,7 @@ gmm_bf16_wgmma_kernel(__grid_constant__ const CUtensorMap tx,
 
     const int warp = (threadIdx.x % 128) / 32;
     const int r = c0 + 64 * cw + 16 * warp + lane / 4;
-    bf16* oe = out + (long long)e * C * F;
+    T* oe = out + (long long)e * C * F;
 #pragma unroll
     for (int j = 0; j < WG_BN / 8; ++j) {
       const int n = f0 + 8 * j + 2 * (lane % 4);
@@ -340,8 +348,8 @@ gmm_bf16_wgmma_kernel(__grid_constant__ const CUtensorMap tx,
       for (int h = 0; h < 2; ++h) {
         const int rr = r + 8 * h;
         if (rr >= C) continue;
-        *reinterpret_cast<__nv_bfloat162*>(oe + (long long)rr * F + n) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(oe + (long long)rr * F + n) =
+            pack2<T>(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
       }
     }
   }
@@ -356,39 +364,54 @@ gmm_bf16_wgmma_kernel(__grid_constant__ const CUtensorMap tx,
 #define ROUTE_MMA_SYNC 1
 #define ROUTE_WGMMA 2
 
-// x (E, C, D), w (E, D, F), out (E, C, F), all contiguous, one dtype:
-// float32 for ROUTE_FMA, bf16 for the others.  cudaErrorInvalidValue for
-// a route the shape or alignment does not allow.
+template <typename T>
+static cudaError_t launch_wgmma(const void* x, const void* w, void* out,
+                                int E, int C, int D, int F, bool f16,
+                                cudaStream_t st) {
+  const long long n_c = (C + WG_BM - 1) / WG_BM;
+  const long long n_f = (F + WG_BN - 1) / WG_BN;
+  if (n_c * n_f * E > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  int rc = encode_b16_3d(&tx, x, D, C, E, WG_BK, WG_BM, f16);
+  if (rc == 0) rc = encode_b16_3d(&tw, w, F, D, E, 64, WG_BK, f16);
+  if (rc != 0) return (cudaError_t)rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      gmm_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      WG_SMEM);
+  if (err != cudaSuccess) return err;
+  gmm_wgmma_kernel<T><<<(unsigned)(n_c * n_f * E), WG_THREADS, WG_SMEM,
+                        st>>>(tx, tw, (T*)out, C, D, F, (int)n_c, (int)n_f);
+  return cudaGetLastError();
+}
+
+// x (E, C, D), w (E, D, F), out (E, C, F), all contiguous, one dtype dt:
+// DT_F32 for ROUTE_FMA, DT_BF16 or DT_F16 for the others.
+// cudaErrorInvalidValue for a route the dtype, shape or alignment does
+// not allow.
 extern "C" int grouped_matmul_launch(const void* x, const void* w, void* out,
                                      int E, int C, int D, int F, int route,
-                                     void* stream) {
+                                     int dt, void* stream) {
   if (E < 1 || C < 1 || D < 0 || F < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool aligned = ((uintptr_t)x | (uintptr_t)w) % 16 == 0;
-  if (route == ROUTE_WGMMA) {
+  const bool b16 = dt == DT_BF16 || dt == DT_F16;
+  if (route == ROUTE_WGMMA && b16) {
     if (!(aligned && D > 0 && D % 8 == 0 && F % 8 == 0))
       return (int)cudaErrorInvalidValue;
-    const long long n_c = (C + WG_BM - 1) / WG_BM;
-    const long long n_f = (F + WG_BN - 1) / WG_BN;
-    if (n_c * n_f * E > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    CUtensorMap tx, tw;
-    int rc = encode_bf16_3d(&tx, x, D, C, E, WG_BK, WG_BM);
-    if (rc == 0) rc = encode_bf16_3d(&tw, w, F, D, E, 64, WG_BK);
-    if (rc != 0) return rc;
-    rc = (int)cudaFuncSetAttribute(gmm_bf16_wgmma_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   WG_SMEM);
-    if (rc != 0) return rc;
-    gmm_bf16_wgmma_kernel<<<(unsigned)(n_c * n_f * E), WG_THREADS, WG_SMEM,
-                            st>>>(tx, tw, (bf16*)out, C, D, F, (int)n_c,
-                                  (int)n_f);
-  } else if (route == ROUTE_MMA_SYNC) {
+    return (int)(dt == DT_F16
+                     ? launch_wgmma<f16>(x, w, out, E, C, D, F, true, st)
+                     : launch_wgmma<bf16>(x, w, out, E, C, D, F, false, st));
+  } else if (route == ROUTE_MMA_SYNC && b16) {
     const dim3 grid((F + BN - 1) / BN, (C + BM - 1) / BM, E);
     if (grid.y > 65535 || E > 65535) return (int)cudaErrorInvalidValue;
     const int v = aligned && D % 8 == 0 && F % 8 == 0;
-    gmm_bf16_kernel<<<grid, 256, 0, st>>>((const bf16*)x, (const bf16*)w,
-                                          (bf16*)out, C, D, F, v);
-  } else if (route == ROUTE_FMA) {
+    if (dt == DT_F16)
+      gmm_b16_kernel<f16><<<grid, 256, 0, st>>>(
+          (const f16*)x, (const f16*)w, (f16*)out, C, D, F, v);
+    else
+      gmm_b16_kernel<bf16><<<grid, 256, 0, st>>>(
+          (const bf16*)x, (const bf16*)w, (bf16*)out, C, D, F, v);
+  } else if (route == ROUTE_FMA && dt == DT_F32) {
     const dim3 grid((F + FT - 1) / FT, (C + FT - 1) / FT, E);
     if (grid.y > 65535 || E > 65535) return (int)cudaErrorInvalidValue;
     gmm_f32_kernel<<<grid, 256, 0, st>>>((const float*)x, (const float*)w,

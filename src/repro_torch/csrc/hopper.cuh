@@ -145,36 +145,45 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile,
 #define WGMMA_D16(i) \
   WGMMA_D4(i), WGMMA_D4(i + 4), WGMMA_D4(i + 8), WGMMA_D4(i + 12)
 
-// d (64 x 256, float32) += A (64 x 16, bf16) B (16 x 256, bf16): A
-// K-major, B K-major (TRANS_B 0) or N-major (TRANS_B 1), both by
-// descriptor.  Thread l of warp w in the warpgroup holds d[4j + h]: row
-// 16 w + l / 4 (+ 8 for h >= 2), column 8 j + 2 (l % 4) + h % 2.  Each
-// product of two bf16 is exact in float32.
-template <int TRANS_B>
+// d (64 x 256, float32) += A (64 x 16) B (16 x 256), both of the 16-bit
+// type T (bf16 or fp16): A K-major, B K-major (TRANS_B 0) or N-major
+// (TRANS_B 1), both by descriptor.  Thread l of warp w in the warpgroup
+// holds d[4j + h]: row 16 w + l / 4 (+ 8 for h >= 2), column 8 j + 2 (l %
+// 4) + h % 2.  Each product of two bf16 (or two fp16) is exact in
+// float32.
+#define WGMMA_M64N256K16(TY)                                                \
+  asm volatile(                                                             \
+      "{\n"                                                                 \
+      ".reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %130, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "   \
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "   \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "   \
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "    \
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "  \
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "  \
+      "%127}, %128, %129, p, 1, 1, 0, %131;\n"                               \
+      "}\n"                                                                 \
+      : WGMMA_D16(0), WGMMA_D16(16), WGMMA_D16(32), WGMMA_D16(48),          \
+        WGMMA_D16(64), WGMMA_D16(80), WGMMA_D16(96), WGMMA_D16(112)         \
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B))
+
+template <int TRANS_B, typename T = bf16>
 __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a,
                                                  uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, %128, %129, p, 1, 1, 0, %131;\n"
-      "}\n"
-      : WGMMA_D16(0), WGMMA_D16(16), WGMMA_D16(32), WGMMA_D16(48),
-        WGMMA_D16(64), WGMMA_D16(80), WGMMA_D16(96), WGMMA_D16(112)
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+  if constexpr (std::is_same<T, bf16>::value) {
+    WGMMA_M64N256K16("bf16");
+  } else {
+    WGMMA_M64N256K16("f16");
+  }
 }
 
+#undef WGMMA_M64N256K16
 #undef WGMMA_D16
 #undef WGMMA_D4
 
@@ -219,15 +228,15 @@ static TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// a bf16 tensor of rank R, dims n[0..R) innermost first, unit stride on
-// dim 0 and byte strides s[0..R-1) for dims 1..R-1 (multiples of 16, as
-// TMA asks, like the base address), read in boxes of box[0..R) with the
-// 128-byte swizzle (box[0] * 2 <= 128) and zeros beyond the edges.
-// Returns 0 or a cudaError_t.
+// a 16-bit tensor of rank R (bf16, or fp16 when f16), dims n[0..R)
+// innermost first, unit stride on dim 0 and byte strides s[0..R-1) for
+// dims 1..R-1 (multiples of 16, as TMA asks, like the base address), read
+// in boxes of box[0..R) with the 128-byte swizzle (box[0] * 2 <= 128) and
+// zeros beyond the edges.  Returns 0 or a cudaError_t.
 template <int R>
-static int encode_bf16(CUtensorMap* map, const void* base,
-                       const uint64_t* n, const uint64_t* s,
-                       const uint32_t* box) {
+static int encode_b16(CUtensorMap* map, const void* base,
+                      const uint64_t* n, const uint64_t* s,
+                      const uint32_t* box, bool f16 = false) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t dims[R], strides[R - 1];
@@ -243,22 +252,23 @@ static int encode_bf16(CUtensorMap* map, const void* base,
     }
   }
   const CUresult rc = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(base),
-      dims, strides, boxes, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      R, const_cast<void*>(base), dims, strides, boxes, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// a 3-D bf16 tensor, contiguous, dims (n0, n1, n2) innermost first, read
+// a 3-D 16-bit tensor, contiguous, dims (n0, n1, n2) innermost first, read
 // in boxes of (b0, b1, 1); n0 % 8 == 0 and base 16-byte aligned
-static int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0,
-                          uint64_t n1, uint64_t n2, uint32_t b0,
-                          uint32_t b1) {
+static int encode_b16_3d(CUtensorMap* map, const void* base, uint64_t n0,
+                         uint64_t n1, uint64_t n2, uint32_t b0, uint32_t b1,
+                         bool f16) {
   const uint64_t dims[3] = {n0, n1, n2};
   const uint64_t strides[2] = {n0 * 2, n0 * n1 * 2};
   const uint32_t box[3] = {b0, b1, 1};
-  return encode_bf16<3>(map, base, dims, strides, box);
+  return encode_b16<3>(map, base, dims, strides, box, f16);
 }
 
 // ---------------------------------------------------------------------------

@@ -7,9 +7,19 @@
 //   y     = (C B^T ⊙ tril(exp(cs_i - cs_j))) xw + (C state^T) ⊙ exp(cs)
 //   state = state * exp(cs_last) + xw^T (B ⊙ exp(cs_last - cs))
 //
-// all float32-accurate from float32 or bf16 inputs; y is stored in x's
-// dtype, the final state in float32.  b and c carry G groups; head h
+// all float32-accurate from float32, bf16 or fp16 inputs; y is stored in
+// x's dtype, the final state in float32.  b and c carry G groups; head h
 // reads group h / (H / G), so the GQA expansion is an index, not a copy.
+//
+// Domain: any P, N and chunk dividing S, as the Pallas kernel takes them.
+// The tiles hold P <= 64 columns of x, y and the state and N <= 128 of
+// B, C and the state; a wider P runs ceil(P / 64) blocks of 64 columns
+// per (chunk, head) in the chunk and carry kernels (given C B^T, y's and
+// the state's columns are independent; cs is recomputed per block), and a
+// wider N accumulates C B^T, the carry-in C state^T and the state update
+// over 128-wide slices.  The chunk-long arrays (cs, dt, the decay) sit in
+// shared memory while they fit there (chunk to 10,240 beside the tiles),
+// else in a global scratch buffer, one slice a block.
 //
 // What bounds it: operations.  Per (b, chunk) at mamba2-780m's c 256,
 // P 64, N 128 the causal half of C B^T is 8.42 MFLOP for each group (the
@@ -57,8 +67,9 @@
 // TF32 product keeps 11 bits of each factor, far too few for phase 6's
 // float64 check, so every float32 operand v goes in as hi = tf32(v) and
 // lo = tf32(v - hi), and a product as lo*hi + hi*lo, then hi*hi
-// (common.cuh mma_tf32x3).  A bf16 input is exact in TF32 (lo = 0): for
-// bf16 b and c, C B^T takes one product.  xw, the masked scores, B ⊙
+// (common.cuh mma_tf32x3).  A bf16 or fp16 input is exact in TF32 (11
+// significant bits and an 8-bit exponent hold fp16's 11 and 5, subnormals
+// included; lo = 0): for 16-bit b and c, C B^T takes one product.  xw, the masked scores, B ⊙
 // decay and the state are float32 whatever the inputs, so they always
 // carry their lo.  Every long sum (over N for C B^T and the carry-in,
 // over the chunk's positions for y and the state) accumulates KS k-steps
@@ -97,9 +108,9 @@
 #define PK 132           // pitch of a [row][n] tile (C, B, state)
 #define PX 68            // pitch of a [j][p] tile (xw)
 #define THREADS 256      // eight warps
-#define MAX_P 64
-#define MAX_N 128
-#define MAX_CHUNK 1024
+#define MAX_P 64         // columns of x, y and the state a block holds
+#define MAX_N 128        // columns of B, C and the state a slice holds
+#define SMEM_OPTIN 232448
 #define KS 4             // k-steps of 8 per partial sum: 32 terms
 
 struct Strides {         // element strides of (batch, seq, head-or-group)
@@ -302,22 +313,28 @@ ssd_cb_kernel(const T* __restrict__ bm, const T* __restrict__ cm,
   int it = 0;
   while (pairs_of(it + 1) <= pair) ++it;
   const int jt = pair - pairs_of(it);
-  const int K8 = (N + 7) & ~7;
   extern __shared__ float sm[];
   float* Cs = sm;                    // (64, PK): C rows of tile i
   float* Bs = Cs + TILE * PK;        // (64, PK): B rows of tile j
   const long long s0 = (long long)z * chunk;
-  load_rows<8>(Cs, cm + bi * cst.b + s0 * cst.s + (long long)g * cst.h,
-               cst.s, it * TILE, chunk, N, K8, (const float*)nullptr);
-  load_rows<8>(Bs, bm + bi * bs.b + s0 * bs.s + (long long)g * bs.h, bs.s,
-               jt * TILE, chunk, N, K8, (const float*)nullptr);
-  __syncthreads();
+  const T* cbase = cm + bi * cst.b + s0 * cst.s + (long long)g * cst.h;
+  const T* bbase = bm + bi * bs.b + s0 * bs.s + (long long)g * bs.h;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int mb = warp & 3, jh = warp >> 2;
-  constexpr bool EXACT = std::is_same<T, bf16>::value;
+  constexpr bool EXACT = is_b16<T>;
   float acc[4][4];
   zero(acc);
-  nt_product<EXACT, EXACT>(Cs, Bs, mb * 16, jh * 32, TILE, K8, acc);
+  // over N in slices of MAX_N columns (one slice for N <= 128)
+  for (int n0 = 0; n0 < N; n0 += MAX_N) {
+    const int Ns = min(MAX_N, N - n0), K8 = (Ns + 7) & ~7;
+    if (n0 > 0) __syncthreads();     // the previous slice is consumed
+    load_rows<8>(Cs, cbase + n0, cst.s, it * TILE, chunk, Ns, K8,
+                 (const float*)nullptr);
+    load_rows<8>(Bs, bbase + n0, bs.s, jt * TILE, chunk, Ns, K8,
+                 (const float*)nullptr);
+    __syncthreads();
+    nt_product<EXACT, EXACT>(Cs, Bs, mb * 16, jh * 32, TILE, K8, acc);
+  }
   const int nc = S / chunk;
   float* out = cbuf +
                ((((long long)bi * nc + z) * G + g) * npairs + pair) *
@@ -335,31 +352,45 @@ struct BlockPtrs {          // ssd_chunk_kernel's per-block bases
   const T* b;
   const float* cb;
   float* y;
+  float* st;                // the chunk state's first row
   long long xs, bs;         // row strides of x and b
 };
 
-template <typename T, typename TD>
-__global__ void __launch_bounds__(THREADS, 3)
+// one block per (chunk z and column block pb of P, head, sequence):
+// blockIdx.x = z npb + pb.  A launch covers the npb column blocks of Pl
+// columns each from p_base on (Pl 64, and a second launch for a ragged
+// rest; one launch of Pl = P for P <= 64), so that Pl is a parameter and
+// not a register held through the kernel.  BIG: the chunk-long arrays
+// live in `big`, a global buffer of 4 ntp floats a block (where shared
+// memory cannot hold them), else in shared memory beside the tiles.
+// (BIG's global pointers cost registers; its chunks are too long for
+// occupancy to matter, so it runs at two blocks an SM)
+template <typename T, typename TD, bool BIG>
+__global__ void __launch_bounds__(THREADS, BIG ? 2 : 3)
 ssd_chunk_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
                  const float* __restrict__ a, const T* __restrict__ bm,
                  const float* __restrict__ cbuf, Strides xs, Strides ds,
                  Strides bs, int S, int H, int G, int P, int N, int chunk,
+                 int Pl, int p_base, int npb,
                  float* __restrict__ yf, float* __restrict__ cs_out,
-                 float* __restrict__ st_out) {
-  const int z = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+                 float* __restrict__ st_out, float* __restrict__ big) {
+  const int z = blockIdx.x / npb;
+  const int h = blockIdx.y, bi = blockIdx.z;
   const int nc = S / chunk;
   const int g = h / (H / G);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t = lane & 3;
   const int nt = tiles_of(chunk), ntp = nt * TILE;
-  const int K8 = (N + 7) & ~7;
   // the tiles first, at fixed offsets, then the chunk-long arrays
   extern __shared__ float4 smv[];
   uint32_t* Xh = reinterpret_cast<uint32_t*>(smv);        // (64, PX): xw
   uint32_t* Xl = Xh + TILE * PX;                          // its lo terms
   // (64, PK): B ⊙ dec for the state, and before it y's running sums
   float* Bs = reinterpret_cast<float*>(Xl + TILE * PX);
-  double* cs = reinterpret_cast<double*>(Bs + TILE * PK);  // (ntp): cumsum
+  float* arrays = BIG ? big + (((long long)bi * gridDim.y + h) * nc * npb +
+                               blockIdx.x) * 4 * ntp
+                      : Bs + TILE * PK;
+  double* cs = reinterpret_cast<double*>(arrays);    // (ntp): cumsum
   float* dts = reinterpret_cast<float*>(cs + ntp);   // (ntp): dt
   float* dec = dts + ntp;                            // exp(cs_last - cs)
 
@@ -368,11 +399,13 @@ ssd_chunk_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
   // used rather than held in registers through the whole kernel
   __shared__ BlockPtrs<T> ptr;
   if (tid == 0) {
-    ptr.x = x + bi * xs.b + s0 * xs.s + (long long)h * xs.h;
+    const int p0 = p_base + (blockIdx.x % npb) * MAX_P;
+    ptr.x = x + bi * xs.b + s0 * xs.s + (long long)h * xs.h + p0;
     ptr.b = bm + bi * bs.b + s0 * bs.s + (long long)g * bs.h;
     ptr.cb = cbuf + (((long long)bi * nc + z) * G + g) * pairs_of(nt) *
                         (TILE * TILE);
-    ptr.y = yf + ((long long)bi * S + s0) * H * P + (long long)h * P;
+    ptr.y = yf + ((long long)bi * S + s0) * H * P + (long long)h * P + p0;
+    ptr.st = st_out + ((((long long)bi * nc + z) * H + h) * P + p0) * N;
     ptr.xs = xs.s;
     ptr.bs = bs.s;
   }
@@ -403,13 +436,14 @@ ssd_chunk_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
   const double cs_last = cs[chunk - 1];
   float* cso = cs_out + ((long long)bi * H + h) * S + s0;
   for (int i = tid; i < ntp; i += THREADS) {
-    if (i < chunk) cso[i] = (float)cs[i];
+    if (i < chunk && blockIdx.x % npb == 0 && p_base == 0)
+      cso[i] = (float)cs[i];
     dec[i] = i < chunk ? expf((float)(cs_last - cs[i])) : 0.f;
   }
 
   // y: query band `band` holds tiles 2 band and 2 band + 1; warp w takes
-  // rows 16 (w % 4) .. + 15 of tile 2 band + w / 4, all of P.  Its
-  // running sums live in shared memory in the order of its accumulator
+  // rows 16 (w % 4) .. + 15 of tile 2 band + w / 4, all of the block's P.
+  // Its running sums live in shared memory in the order of its accumulator
   // fragments (a float4 a lane and column block), and only the partial
   // sum of KS k-steps in registers.  That, the state's partial sums of
   // 16 n, the base pointers in shared memory and the fixed tile offsets
@@ -425,7 +459,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
     for (int jt = 0; jt <= jt_end; ++jt) {
       const int j0 = jt * TILE;
       __syncthreads();
-      load_xw(Xh, Xl, ptr.x, ptr.xs, dts, j0, chunk, P);
+      load_xw(Xh, Xl, ptr.x, ptr.xs, dts, j0, chunk, Pl);
       __syncthreads();
       if (!live || jt > it) continue;
       const float4* tile = reinterpret_cast<const float4*>(
@@ -457,7 +491,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
           const int r0 = (ks * 8 + 2 * t) * PX + gq;
 #pragma unroll
           for (int q = 0; q < 8; ++q) {
-            if (8 * q < P) {
+            if (8 * q < Pl) {
               const uint32_t bh[2] = {Xh[r0 + 8 * q], Xh[r0 + PX + 8 * q]};
               const uint32_t bl[2] = {Xl[r0 + 8 * q], Xl[r0 + PX + 8 * q]};
               mma_tf32x3<false, false>(part[q], sh, sl, bh, bl);
@@ -484,7 +518,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e < 2 ? ia : ib, p = 8 * q + 2 * t + (e & 1);
-          if (i < chunk && p < P) ptr.y[(long long)i * H * P + p] = v[e];
+          if (i < chunk && p < Pl) ptr.y[(long long)i * H * P + p] = v[e];
         }
       }
     }
@@ -492,60 +526,64 @@ ssd_chunk_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
 
   // the chunk's own state, st[p][n] = sum_j xw[j][p] (dec[j] B[j][n]), in
   // a pass of its own over the key tiles, last first (its xw is still
-  // loaded); warp w takes p = 16 (w % 4) .. + 15, n = 64 (w / 4) .. + 63,
-  // in four runs of 16 n, so that a partial sum takes 8 registers
+  // loaded); warp w takes p = 16 (w % 4) .. + 15, n = 64 (w / 4) .. + 63
+  // of a slice of MAX_N columns (one slice for N <= 128), in four runs of
+  // 16 n, so that a partial sum takes 8 registers
   const int nh = warp >> 2;
-  const bool p_live = mb * 16 < P;
-  float st[8][4];            // p = 16 mb + gq (+ 8); n = 64 nh + 8q + 2t
-  zero(st);
-  for (int jt = nt - 1; jt >= 0; --jt) {
-    const int j0 = jt * TILE;
-    __syncthreads();
-    if (jt != nt - 1) load_xw(Xh, Xl, ptr.x, ptr.xs, dts, j0, chunk, P);
-    load_rows<1>(Bs, ptr.b, ptr.bs, j0, chunk, N, K8, dec + j0);
-    __syncthreads();
-    if (!p_live) continue;
-    const int kend = min(8, (chunk - j0 + 7) / 8);
+  const bool p_live = mb * 16 < Pl;
+  for (int ns = 0; ns < N; ns += MAX_N) {
+    const int Ns = min(MAX_N, N - ns), K8 = (Ns + 7) & ~7;
+    float st[8][4];          // p = 16 mb + gq (+ 8); n = ns + 64 nh + 8q + 2t
+    zero(st);
+    for (int jt = nt - 1; jt >= 0; --jt) {
+      const int j0 = jt * TILE;
+      __syncthreads();
+      if (jt != nt - 1 || ns > 0)
+        load_xw(Xh, Xl, ptr.x, ptr.xs, dts, j0, chunk, Pl);
+      load_rows<1>(Bs, ptr.b + ns, ptr.bs, j0, chunk, Ns, K8, dec + j0);
+      __syncthreads();
+      if (!p_live) continue;
+      const int kend = min(8, (chunk - j0 + 7) / 8);
 #pragma unroll
-    for (int run16 = 0; run16 < 4; ++run16) {
-      const int n0 = nh * 64 + 16 * run16;
-      if (n0 >= N) continue;
-      for (int kp = 0; kp < kend; kp += KS) {
-        float part[2][4];
-        zero(part);
-        for (int ks = kp; ks < min(kp + KS, kend); ++ks) {
-          const int r0 = (ks * 8 + 2 * t) * PX + mb * 16 + gq;
-          const uint32_t xh[4] = {Xh[r0], Xh[r0 + 8], Xh[r0 + PX],
-                                  Xh[r0 + PX + 8]};
-          const uint32_t xl[4] = {Xl[r0], Xl[r0 + 8], Xl[r0 + PX],
-                                  Xl[r0 + PX + 8]};
-          const float* brow = Bs + (ks * 8 + 2 * t) * PK + n0 + gq;
+      for (int run16 = 0; run16 < 4; ++run16) {
+        const int n0 = nh * 64 + 16 * run16;
+        if (n0 >= Ns) continue;
+        for (int kp = 0; kp < kend; kp += KS) {
+          float part[2][4];
+          zero(part);
+          for (int ks = kp; ks < min(kp + KS, kend); ++ks) {
+            const int r0 = (ks * 8 + 2 * t) * PX + mb * 16 + gq;
+            const uint32_t xh[4] = {Xh[r0], Xh[r0 + 8], Xh[r0 + PX],
+                                    Xh[r0 + PX + 8]};
+            const uint32_t xl[4] = {Xl[r0], Xl[r0 + 8], Xl[r0 + PX],
+                                    Xl[r0 + PX + 8]};
+            const float* brow = Bs + (ks * 8 + 2 * t) * PK + n0 + gq;
 #pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            if (n0 + 8 * q < N) {
-              uint32_t bh[2], bl[2];
-              split_tf32(brow[8 * q], bh[0], bl[0]);
-              split_tf32(brow[PK + 8 * q], bh[1], bl[1]);
-              mma_tf32x3<false, false>(part[q], xh, xl, bh, bl);
+            for (int q = 0; q < 2; ++q) {
+              if (n0 + 8 * q < Ns) {
+                uint32_t bh[2], bl[2];
+                split_tf32(brow[8 * q], bh[0], bl[0]);
+                split_tf32(brow[PK + 8 * q], bh[1], bl[1]);
+                mma_tf32x3<false, false>(part[q], xh, xl, bh, bl);
+              }
             }
           }
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) st[2 * run16 + q][e] += part[q][e];
         }
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[2 * run16 + q][e] += part[q][e];
       }
     }
-  }
-  if (!p_live) return;
-  float* so = st_out + (((long long)bi * nc + z) * H + h) * P * N;
+    if (!p_live) continue;
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < 8; ++q) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int p = mb * 16 + gq + (e < 2 ? 0 : 8);
-      const int n = nh * 64 + 8 * q + 2 * t + (e & 1);
-      if (p < P && n < N) so[p * N + n] = st[q][e];
+      for (int e = 0; e < 4; ++e) {
+        const int p = mb * 16 + gq + (e < 2 ? 0 : 8);
+        const int n = nh * 64 + 8 * q + 2 * t + (e & 1);
+        if (p < Pl && n < Ns) ptr.st[p * N + ns + n] = st[q][e];
+      }
     }
   }
 }
@@ -572,48 +610,64 @@ ssd_state_kernel(float* __restrict__ st, const float* __restrict__ cs,
 }
 
 // y += (C state_in^T) ⊙ exp(cs) over 64-row tiles of the chunk: warp w
-// takes rows 16 (w % 4) .. + 15 and p = 32 (w / 4) .. + 31
+// takes rows 16 (w % 4) .. + 15 and p = 32 (w / 4) .. + 31 of the block's
+// 64 columns of P (blockIdx.x = z npb + pb, as ssd_chunk_kernel), the sum
+// over N in slices of MAX_N (the state's slice loaded once for N <= 128)
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 ssd_carry_kernel(const T* __restrict__ cm, Strides cst, const float* st,
                  const float* __restrict__ cs, const float* yf, T* y, int S,
                  int H, int G, int P, int N, int chunk) {
-  const int z = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int npb = (P + MAX_P - 1) / MAX_P;
+  const int z = blockIdx.x / npb, pb = blockIdx.x % npb;
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int p0 = pb * MAX_P, Pl = min(MAX_P, P - p0);  // the block's P
   const int nc = S / chunk;
   const int g = h / (H / G);
   const int tid = threadIdx.x;
   const long long s0 = (long long)z * chunk;
   const long long row = (long long)H * P;
-  const float* yfb = yf + ((long long)bi * S + s0) * row + (long long)h * P;
-  T* yb = y + ((long long)bi * S + s0) * row + (long long)h * P;
+  const float* yfb =
+      yf + ((long long)bi * S + s0) * row + (long long)h * P + p0;
+  T* yb = y + ((long long)bi * S + s0) * row + (long long)h * P + p0;
   if (z == 0) {              // a zero state enters the first chunk
     if ((const void*)yf != (const void*)y)
-      for (int idx = tid; idx < chunk * P; idx += THREADS) {
-        const int i = idx / P, p = idx % P;
+      for (int idx = tid; idx < chunk * Pl; idx += THREADS) {
+        const int i = idx / Pl, p = idx % Pl;
         yb[i * row + p] = from_f<T>(yfb[i * row + p]);
       }
     return;
   }
-  const int K8 = (N + 7) & ~7;
   extern __shared__ float sm[];
   float* Cs = sm;                    // (64, PK): C rows
   float* Ps = Cs + TILE * PK;        // (64, PK): entering state, [p][n]
-  load_rows<8>(Ps, st + (((long long)bi * nc + z) * H + h) * P * N,
-               (long long)N, 0, P, N, K8, (const float*)nullptr);
+  const float* stb = st + ((((long long)bi * nc + z) * H + h) * P + p0) * N;
+  const bool one = N <= MAX_N;       // the state's one slice, loaded once
+  if (one)
+    load_rows<8>(Ps, stb, (long long)N, 0, Pl, N, (N + 7) & ~7,
+                 (const float*)nullptr);
   const float* csb = cs + ((long long)bi * H + h) * S + s0;
   const T* cb = cm + bi * cst.b + s0 * cst.s + (long long)g * cst.h;
   const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
   const int mb = warp & 3, ph = warp >> 2;
-  const bool p_live = ph * 32 < P;
+  const bool p_live = ph * 32 < Pl;
   for (int i0 = 0; i0 < chunk; i0 += TILE) {
-    __syncthreads();
-    load_rows<8>(Cs, cb, cst.s, i0, chunk, N, K8, (const float*)nullptr);
-    __syncthreads();
-    if (!p_live || i0 + mb * 16 >= chunk) continue;
+    const bool busy = p_live && i0 + mb * 16 < chunk;
     float acc[4][4];         // rows i0 + 16 mb + gq (+ 8), p = 32 ph + 8q + 2t
     zero(acc);
-    nt_product<std::is_same<T, bf16>::value, false>(Cs, Ps, mb * 16, ph * 32,
-                                                    P, K8, acc);
+    for (int n0 = 0; n0 < N; n0 += MAX_N) {
+      const int Ns = min(MAX_N, N - n0), K8 = (Ns + 7) & ~7;
+      __syncthreads();
+      load_rows<8>(Cs, cb + n0, cst.s, i0, chunk, Ns, K8,
+                   (const float*)nullptr);
+      if (!one)
+        load_rows<8>(Ps, stb + n0, (long long)N, 0, Pl, Ns, K8,
+                     (const float*)nullptr);
+      __syncthreads();
+      if (busy)
+        nt_product<is_b16<T>, false>(Cs, Ps, mb * 16, ph * 32, Pl, K8, acc);
+    }
+    if (!busy) continue;
     // the warp's 16 x 32 of yf, every load issued before any store (y may
     // be yf itself: a load after each store would wait out each in turn)
     float yv[4][4];          // as acc
@@ -623,7 +677,7 @@ ssd_carry_kernel(const T* __restrict__ cm, Strides cst, const float* st,
       for (int e = 0; e < 4; ++e) {
         const int i = i0 + mb * 16 + gq + (e < 2 ? 0 : 8);
         const int p = ph * 32 + 8 * q + 2 * t + (e & 1);
-        yv[q][e] = i < chunk && p < P ? yfb[i * row + p] : 0.f;
+        yv[q][e] = i < chunk && p < Pl ? yfb[i * row + p] : 0.f;
       }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -633,7 +687,7 @@ ssd_carry_kernel(const T* __restrict__ cm, Strides cst, const float* st,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int p = ph * 32 + 8 * q + 2 * t + (e & 1);
-        if (p < P) yb[i * row + p] = from_f<T>(yv[q][e] + acc[q][e] * ex);
+        if (p < Pl) yb[i * row + p] = from_f<T>(yv[q][e] + acc[q][e] * ex);
       }
     }
   }
@@ -641,11 +695,17 @@ ssd_carry_kernel(const T* __restrict__ cm, Strides cst, const float* st,
 
 static size_t tiles_smem() { return sizeof(float) * (size_t)2 * TILE * PK; }
 
-static size_t chunk_smem(int chunk) {
-  const size_t ntp = (size_t)tiles_of(chunk) * TILE;
-  return ntp * (sizeof(double) + 2 * sizeof(float)) +
-         sizeof(uint32_t) * (size_t)2 * TILE * PX +
+// the chunk kernel's shared memory: its tiles, and the chunk-long arrays
+// when they fit beside them (arrays_in_smem)
+static size_t chunk_arrays(int chunk) {
+  return (size_t)tiles_of(chunk) * TILE * (sizeof(double) + 2 * sizeof(float));
+}
+static size_t chunk_tiles() {
+  return sizeof(uint32_t) * (size_t)2 * TILE * PX +
          sizeof(float) * (size_t)TILE * PK;
+}
+static bool arrays_in_smem(int chunk) {
+  return chunk_tiles() + chunk_arrays(chunk) <= SMEM_OPTIN;
 }
 
 template <typename K>
@@ -660,22 +720,42 @@ static cudaError_t run(const void* x, const void* dt, const float* a,
                        Strides bs, Strides cst, int B, int S, int H, int G,
                        int P, int N, int chunk, void* y, float* yf,
                        float* cs, float* st, float* cbuf, float* fin,
-                       cudaStream_t stream) {
+                       float* big, cudaStream_t stream) {
   const int nc = S / chunk, npairs = pairs_of(tiles_of(chunk));
-  const size_t smt = tiles_smem(), smc = chunk_smem(chunk);
+  const int npb = (P + MAX_P - 1) / MAX_P;
+  const bool in_smem = arrays_in_smem(chunk);
+  if (in_smem != (big == nullptr)) return cudaErrorInvalidValue;
+  const size_t smt = tiles_smem(),
+               smc = chunk_tiles() + (in_smem ? chunk_arrays(chunk) : 0);
   cudaError_t err;
   if ((err = allow_smem(ssd_cb_kernel<T>, smt)) != cudaSuccess ||
-      (err = allow_smem(ssd_chunk_kernel<T, TD>, smc)) != cudaSuccess ||
+      (err = allow_smem(ssd_chunk_kernel<T, TD, false>, smc)) !=
+          cudaSuccess ||
+      (err = allow_smem(ssd_chunk_kernel<T, TD, true>, smc)) != cudaSuccess ||
       (err = allow_smem(ssd_carry_kernel<T>, smt)) != cudaSuccess)
     return err;
   ssd_cb_kernel<T><<<dim3(npairs * nc, G, B), THREADS, smt, stream>>>(
       (const T*)b, (const T*)c, bs, cst, S, G, N, chunk, cbuf);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 blocks(nc, H, B);
-  ssd_chunk_kernel<T, TD><<<blocks, THREADS, smc, stream>>>(
-      (const T*)x, (const TD*)dt, a, (const T*)b, cbuf, xs, ds, bs, S, H, G,
-      P, N, chunk, yf, cs, st);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // the column blocks of P: full ones of MAX_P, then a ragged rest
+  const int full = P > MAX_P ? P / MAX_P : 0, rest = P - full * MAX_P;
+  auto chunk_kernel = in_smem ? ssd_chunk_kernel<T, TD, false>
+                               : ssd_chunk_kernel<T, TD, true>;
+  if (full > 0) {
+    chunk_kernel<<<dim3(nc * full, H, B), THREADS, smc, stream>>>(
+        (const T*)x, (const TD*)dt, a, (const T*)b, cbuf, xs, ds, bs, S, H,
+        G, P, N, chunk, MAX_P, 0, full, yf, cs, st, big);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (rest > 0) {
+    chunk_kernel<<<dim3(nc, H, B), THREADS, smc, stream>>>(
+        (const T*)x, (const TD*)dt, a, (const T*)b, cbuf, xs, ds, bs, S, H,
+        G, P, N, chunk, rest, full * MAX_P, 1, yf, cs, st,
+        in_smem ? big : big + (long long)B * H * nc * full * 4 *
+                                  tiles_of(chunk) * TILE);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const dim3 blocks(nc * npb, H, B);
   ssd_state_kernel<<<dim3((P * N + THREADS - 1) / THREADS, H, B), THREADS, 0,
                      stream>>>(st, cs, fin, S, H, P * N, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -684,13 +764,26 @@ static cudaError_t run(const void* x, const void* dt, const float* a,
   return cudaGetLastError();
 }
 
+// The floats of the global scratch buffer `big` that a call with these
+// shapes needs (0: the chunk kernel keeps its chunk-long arrays in shared
+// memory, and big is null): 4 ntp floats (cs in float64, dt, the decay)
+// for each of its blocks.
+extern "C" long long ssd_scan_big_floats(int B, int S, int H, int P,
+                                         int chunk) {
+  if (chunk < 1 || arrays_in_smem(chunk)) return 0;
+  const long long npb = (P + MAX_P - 1) / MAX_P;
+  return (long long)B * H * (S / chunk) * npb * 4 * tiles_of(chunk) * TILE;
+}
+
 // x (B, S, H, P), dt (B, S, H), b and c (B, S, G, N): unit stride on the
 // last axis, the other strides (in elements) given; a (H,) float32.
-// x, b and c share x_dt; dt has dt_dt (DT_F32 or DT_BF16).  y (B, S, H,
-// P) contiguous in x's dtype; yf a float32 (B, S, H, P) buffer (y itself
-// when x is float32); cs (B, H, S), st (B, S / chunk, H, P, N) and cb
-// (B, S / chunk, G, T (T + 1) / 2, 64, 64) with T = ceil(chunk / 64)
-// float32 scratch; fin (B, H, P, N) float32, the final state.
+// x, b and c share x_dt; dt has dt_dt (DT_F32, DT_BF16 or DT_F16).  y (B,
+// S, H, P) contiguous in x's dtype; yf a float32 (B, S, H, P) buffer (y
+// itself when x is float32); cs (B, H, S), st (B, S / chunk, H, P, N) and
+// cb (B, S / chunk, G, T (T + 1) / 2, 64, 64) with T = ceil(chunk / 64)
+// float32 scratch; fin (B, H, P, N) float32, the final state; big the
+// scratch of ssd_scan_big_floats floats, or null when that is 0.  Any P,
+// N >= 1 and chunk dividing S.
 extern "C" int ssd_scan_launch(
     const void* x, const void* dt, const void* a, const void* b,
     const void* c, long long xsb, long long xss, long long xsh,
@@ -698,26 +791,32 @@ extern "C" int ssd_scan_launch(
     long long bss, long long bsg, long long csb, long long css,
     long long csg, int B, int S, int H, int G, int P, int N, int chunk,
     int x_dt, int dt_dt, void* y, void* yf, void* cs, void* st, void* cb,
-    void* fin, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || G < 1 || H % G || P < 1 || P > MAX_P ||
-      N < 1 || N > MAX_N || chunk < 1 || chunk > MAX_CHUNK || S % chunk ||
-      H > 65535 || G > 65535 || B > 65535 ||
-      (long long)(S / chunk) * pairs_of(tiles_of(chunk)) > 0x7fffffff)
+    void* fin, void* big, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || G < 1 || H % G || P < 1 || N < 1 ||
+      chunk < 1 || S % chunk || H > 65535 || G > 65535 || B > 65535 ||
+      (long long)(S / chunk) * pairs_of(tiles_of(chunk)) > 0x7fffffff ||
+      (long long)(S / chunk) * ((P + MAX_P - 1) / MAX_P) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  if (x_dt == DT_BF16 && yf == y) return (int)cudaErrorInvalidValue;
+  if (x_dt != DT_F32 && yf == y) return (int)cudaErrorInvalidValue;
   const Strides xs{xsb, xss, xsh}, ds{dsb, dss, dsh}, bs{bsb, bss, bsg},
       cst{csb, css, csg};
   cudaStream_t s = (cudaStream_t)stream;
   const float* af = (const float*)a;
   float *yff = (float*)yf, *csf = (float*)cs, *stf = (float*)st,
-        *cbf = (float*)cb, *ff = (float*)fin;
+        *cbf = (float*)cb, *ff = (float*)fin, *bg = (float*)big;
 #define RUN(T, TD)                                                        \
   return (int)run<T, TD>(x, dt, af, b, c, xs, ds, bs, cst, B, S, H, G, P, \
-                         N, chunk, y, yff, csf, stf, cbf, ff, s)
-  if (x_dt == DT_F32 && dt_dt == DT_F32) RUN(float, float);
-  if (x_dt == DT_F32 && dt_dt == DT_BF16) RUN(float, bf16);
-  if (x_dt == DT_BF16 && dt_dt == DT_F32) RUN(bf16, float);
-  if (x_dt == DT_BF16 && dt_dt == DT_BF16) RUN(bf16, bf16);
+                         N, chunk, y, yff, csf, stf, cbf, ff, bg, s)
+#define RUN_DT(T)                             \
+  {                                           \
+    if (dt_dt == DT_F32) RUN(T, float);       \
+    if (dt_dt == DT_BF16) RUN(T, bf16);       \
+    if (dt_dt == DT_F16) RUN(T, f16);         \
+  }
+  if (x_dt == DT_F32) RUN_DT(float)
+  if (x_dt == DT_BF16) RUN_DT(bf16)
+  if (x_dt == DT_F16) RUN_DT(f16)
+#undef RUN_DT
 #undef RUN
   return (int)cudaErrorInvalidValue;
 }

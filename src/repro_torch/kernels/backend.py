@@ -50,21 +50,33 @@ def describe_device(device) -> dict:
 SMEM_OPTIN = 232_448
 
 # dtype codes of the model kernels' C entry points (csrc/common.cuh)
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-# the head dims the attention kernels (B5, B6) take on every route: a
-# multiple of 8 from 8 to 256, as the reference's kernels take any d
-HEAD_DIM_DOMAIN = range(8, 257, 8)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def padded_head_dim(d: int, widths, who: str) -> int:
-    """The width a call with head dim ``d`` runs at: the smallest of the
-    route's instantiated ``widths`` that is >= d, the columns past d zero
-    (csrc ``padded_dh``).  Outside ``HEAD_DIM_DOMAIN`` it raises."""
-    if d not in HEAD_DIM_DOMAIN:
-        raise ValueError(f"{who}: the kernel takes d in 8, 16, ..., 256 "
-                         f"(a multiple of 8), got d={d}")
-    return next(w for w in widths if w >= d)
+    """The width a call with head dim ``d`` runs at, the one width rule of
+    the attention kernels (B5, B6), passed into C: the smallest of the
+    route's instantiated ``widths`` that is >= d, the columns past d zero;
+    past the widest, the widest, and the call splits d into column
+    blocks of that width (the float32-FMA routes).  Any d >= 1, as the
+    reference's kernels take any d; d < 1 raises."""
+    if d < 1:
+        raise ValueError(f"{who}: the kernel takes a head dim d >= 1, "
+                         f"got d={d}")
+    return next((w for w in widths if w >= d), widths[-1])
+
+
+def head_dim_route(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The attention kernels' route (B5, B6) for head dim ``d``:
+    ``"mma"`` (the tensor cores) for bfloat16 and float16 whose d is a
+    multiple of 8 up to 256 and whose rows are all ``aligned``
+    (``rows_aligned``); ``"fma"`` (scalar float32 FMAs, element loads
+    where the rows are not aligned, d past 256 split into column blocks)
+    for float32 and every other 16-bit input."""
+    if (dtype in (torch.bfloat16, torch.float16) and d % 8 == 0
+            and d <= 256 and aligned):
+        return "mma"
+    return "fma"
 
 
 def kernel_route(who: str, *tensors: torch.Tensor) -> str:
@@ -108,12 +120,14 @@ def plain_route(who: str, count, fn, *args, **kwargs):
 
 
 def kernel_dtype(who: str, *tensors: torch.Tensor) -> int:
-    """The dtype code of tensors that share float32 or bfloat16."""
+    """The dtype code of tensors that share float32, bfloat16 or
+    float16."""
     dtypes = {t.dtype for t in tensors}
     dtype = dtypes.pop() if len(dtypes) == 1 else None
     if dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{who}: the kernel takes float32 or bfloat16, one "
-                        f"dtype for all, got {[str(t.dtype) for t in tensors]}")
+        raise TypeError(f"{who}: the kernel takes float32, bfloat16 or "
+                        f"float16, one dtype for all, got "
+                        f"{[str(t.dtype) for t in tensors]}")
     return KERNEL_DTYPES[dtype]
 
 

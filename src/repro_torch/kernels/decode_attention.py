@@ -12,12 +12,16 @@ dtype cast to int32 there), which the kernel reads from device memory:
 no ``.item()``, no host synchronisation.  The kernel
 (``csrc/decode_attention.cu``: split-K partials and a log-sum-exp
 combine) says what bounds it and how its design answers that.  Two
-routes, by dtype (``decode_attention_route``): ``mma`` for bfloat16 (a
-TMA ring and the GQA group on ``mma.sync``), ``fma`` for float32 (scalar
-IEEE FMAs).  Both take every head dim in ``backend.HEAD_DIM_DOMAIN`` (a
-multiple of 8 from 8 to 256, as the reference's kernel takes any d), run
-at the smallest of the route's ``WIDTHS`` (``backend.padded_head_dim``)
-with the columns past d zero.
+routes, by dtype, head dim and alignment (``decode_attention_route``):
+``mma`` for bfloat16 and float16 at a d that is a multiple of 8 up to 256
+with aligned rows (a TMA ring and the GQA group on ``mma.sync``), ``fma``
+for float32 and every other 16-bit input (scalar IEEE FMAs on widened
+values; element loads for rows TMA cannot read, no padded copy).  Any
+head dim d >= 1, as the reference's kernel takes any d: a call runs at
+the smallest of the route's ``WIDTHS`` >= d (``backend.padded_head_dim``,
+the one width rule, passed into C) with the columns past d zero, and a d
+past 256 splits the output's columns across blocks of 256, each
+computing the scores over all of d.
 ``decode_attention`` launches the kernel for CUDA tensors and takes
 ``ref.ref_decode_attention`` for CPU tensors.
 """
@@ -39,8 +43,10 @@ WIDTHS = {"mma": (64, 128, 256), "fma": (8, 16, 32, 64, 128, 256)}
 BLOCK_K = 64                       # cache positions a tile (csrc BK)
 SUB_GROUP = {"mma": 16, "fma": 8}  # query heads a block, at most
 
-# (device index, d, group, dtype code) -> blocks resident on the card
-_resident: Dict[Tuple[int, int, int, int], int] = {}
+# (device index, d, width, group, dtype code, route, vector loads) ->
+# blocks resident on the card
+_resident: Dict[Tuple[int, int, int, int, int, str, bool], int] = {}
+ROUTES = {"fma": 0, "mma": 1}  # route codes of the C entry point
 
 
 def _lib():
@@ -49,18 +55,22 @@ def _lib():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, ll, ll, ll, ll, ll, ll, i, i, i, i, i, i,
-                       p, i, p, i, ctypes.c_float, p, p, p, i, p]
+                       i, p, i, p, i, ctypes.c_float, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
         occ = lib.decode_attention_blocks_per_sm
-        occ.argtypes = [i, i, i, ctypes.POINTER(i)]
+        occ.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
         occ.restype = ctypes.c_int
     return lib
 
 
-def decode_attention_route(q: torch.Tensor, *_) -> str:
-    """The kernel a CUDA call takes: ``mma`` for bfloat16, ``fma`` for
-    float32."""
-    return "mma" if q.dtype == torch.bfloat16 else "fma"
+def decode_attention_route(q: torch.Tensor, *caches: torch.Tensor) -> str:
+    """The kernel a CUDA call on q and the caches (those given) takes:
+    ``mma`` for bfloat16 and float16 at a head dim that is a multiple of 8
+    up to 256 with every row 16-byte aligned (what TMA reads), ``fma``
+    for the rest (``backend.head_dim_route``)."""
+    return backend.head_dim_route(
+        q.dtype, q.shape[-1],
+        all(backend.rows_aligned(t) for t in (q, *caches)))
 
 
 def split_count(B: int, KV: int, n_sub: int, K: int, resident: int) -> int:
@@ -84,18 +94,19 @@ def split_tiles(K: int, length: int, window: int, sp: int,
     return t0 + n * sp // nsplit, t0 + n * (sp + 1) // nsplit
 
 
-def _resident_blocks(device: torch.device, d: int, group: int,
-                     dt: int) -> int:
+def _resident_blocks(device: torch.device, d: int, width: int, group: int,
+                     dt: int, route: str, vec: bool) -> int:
     """SMs times the blocks of the kernel an SM holds, queried once per
     device and shape class."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    key = (index, d, group, dt)
+    key = (index, d, width, group, dt, route, vec)
     if key not in _resident:
         per_sm = ctypes.c_int(0)
         with torch.cuda.device(index):
             rc = _lib().decode_attention_blocks_per_sm(
-                d, group, dt, ctypes.byref(per_sm))
+                d, width, group, dt, ROUTES[route], int(vec),
+                ctypes.byref(per_sm))
         if rc != 0 or per_sm.value < 1:
             raise RuntimeError(f"decode_attention: occupancy query failed "
                                f"(cudaError {rc}, {per_sm.value} blocks)")
@@ -104,15 +115,49 @@ def _resident_blocks(device: torch.device, d: int, group: int,
     return _resident[key]
 
 
-def decode_attention_nsplit(q: torch.Tensor, k_cache: torch.Tensor) -> int:
-    """The splits a CUDA call on these inputs launches."""
+def _plan(q: torch.Tensor, k_cache: torch.Tensor,
+          v_cache: torch.Tensor) -> Tuple[int, str, int, bool]:
+    """The kernel's checks on q and the caches, and the call's plan: the
+    dtype code, the route, the width it runs at and whether every row is
+    16-byte aligned (each read once).  Reads only dtype, shape, strides
+    and address."""
+    dt = backend.kernel_dtype("decode_attention", q, k_cache, v_cache)
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_attention: q (B, H, d) and caches "
+                         f"(B, K, KV, d), got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, H, d = q.shape
+    _, K, KV, dk = k_cache.shape
+    if k_cache.shape[0] != B or dk != d or KV < 1 or H % KV:
+        raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} "
+                         f"do not fit q {tuple(q.shape)}")
+    aligned = all(backend.rows_aligned(t) for t in (q, k_cache, v_cache))
+    route = backend.head_dim_route(q.dtype, d, aligned)
+    width = backend.padded_head_dim(d, WIDTHS[route], "decode_attention")
+    if not (q.is_contiguous() and k_cache.stride(-1) == 1
+            and v_cache.stride(-1) == 1):
+        raise ValueError("decode_attention: q contiguous, and the caches "
+                         "unit-strided on d")
+    return dt, route, width, aligned
+
+
+def _nsplit(q: torch.Tensor, k_cache: torch.Tensor, dt: int, route: str,
+            width: int, vec: bool) -> int:
     B, H, d = q.shape
     _, K, KV, _ = k_cache.shape
-    route = decode_attention_route(q)
     n_sub = -(-(H // KV) // SUB_GROUP[route])
-    dt = backend.KERNEL_DTYPES[q.dtype]
+    if d > width:
+        n_sub *= -(-d // width)   # the fma route's column blocks
     return split_count(B, KV, n_sub, K,
-                       _resident_blocks(q.device, d, H // KV, dt))
+                       _resident_blocks(q.device, d, width, H // KV, dt,
+                                        route, vec))
+
+
+def decode_attention_nsplit(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor) -> int:
+    """The splits a CUDA call on these inputs launches."""
+    dt, route, width, vec = _plan(q, k_cache, v_cache)
+    return _nsplit(q, k_cache, dt, route, width, vec)
 
 
 def _runtime_scalar(name: str, val, device: torch.device):
@@ -146,24 +191,7 @@ def check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
     """The kernel's checks on q and the caches; returns the dtype code.
     Reads only dtype, shape, strides and address, so it takes ``meta``
     tensors too (the CPU tests run it at the models' shapes)."""
-    dt = backend.kernel_dtype("decode_attention", q, k_cache, v_cache)
-    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
-        raise ValueError(f"decode_attention: q (B, H, d) and caches "
-                         f"(B, K, KV, d), got {tuple(q.shape)}, "
-                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
-    B, H, d = q.shape
-    _, K, KV, dk = k_cache.shape
-    if k_cache.shape[0] != B or dk != d or KV < 1 or H % KV:
-        raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} "
-                         f"do not fit q {tuple(q.shape)}")
-    backend.padded_head_dim(d, WIDTHS[decode_attention_route(q)],
-                            "decode_attention")
-    if not (q.is_contiguous() and backend.rows_aligned(q)
-            and backend.rows_aligned(k_cache)
-            and backend.rows_aligned(v_cache)):
-        raise ValueError("decode_attention: q contiguous, and every row of "
-                         "q and the caches unit-strided and 16-byte aligned")
-    return dt
+    return _plan(q, k_cache, v_cache)[0]
 
 
 def cost(q: torch.Tensor, k_cache: torch.Tensor, window):
@@ -183,7 +211,8 @@ def cost(q: torch.Tensor, k_cache: torch.Tensor, window):
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length,
                      window=0) -> torch.Tensor:
-    """q (B, H, d); caches (B, K, KV, d), float32 or bfloat16, one dtype.
+    """q (B, H, d); caches (B, K, KV, d), float32, bfloat16 or float16,
+    one dtype; any d >= 1.
     Returns (B, H, d) in q's dtype.  CUDA tensors launch the kernel
     (counted in ``decode_attention.launches``); CPU tensors take the plain
     version."""
@@ -192,7 +221,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return backend.plain_route(
             "decode_attention", lambda: cost(q, k_cache, window),
             ref_decode_attention, q, k_cache, v_cache, length, window)
-    dt = check_inputs(q, k_cache, v_cache)
+    dt, route_c, width, vec = _plan(q, k_cache, v_cache)
     if route == "meta":
         backend.record_kernel("decode_attention", lambda: cost(q, k_cache, window))
         return torch.empty_like(q)
@@ -204,7 +233,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     win_dev, win_host, _win = _runtime_scalar("window", window, q.device)
     if q.numel() == 0 or K == 0:
         return torch.zeros_like(q)
-    nsplit = decode_attention_nsplit(q, k_cache)
+    nsplit = _nsplit(q, k_cache, dt, route_c, width, vec)
     part_acc = torch.empty(B * H * nsplit * d, dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty(B * H * nsplit * 2, dtype=torch.float32,
@@ -213,10 +242,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     backend.launch("decode_attention", _lib().decode_attention_launch,
                    q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                    *k_cache.stride()[:3], *v_cache.stride()[:3],
-                   B, H, KV, K, d, nsplit, len_dev, len_host, win_dev,
-                   win_host, 1.0 / math.sqrt(d),
+                   B, H, KV, K, d, width, nsplit, len_dev, len_host,
+                   win_dev, win_host, 1.0 / math.sqrt(d),
                    part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-                   dt, device=q.device)
+                   dt, ROUTES[route_c], int(vec), device=q.device)
     decode_attention.launches += 1
     backend.record_kernel("decode_attention", lambda: cost(q, k_cache, window))
     return out

@@ -18,7 +18,9 @@ import torch
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_rmsnorm
 
-MAX_D = 16_384                   # 512 threads x 32 values a thread
+# the widest row the one-pass kernel holds in registers (512 threads x
+# 32 values a thread); wider rows, to int32 range, take the two-pass one
+MAX_D = 16_384
 
 
 def _lib():
@@ -34,7 +36,8 @@ def _lib():
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """x (..., D) contiguous, scale (D,); float32 or bfloat16 each.
+    """x (..., D) contiguous, scale (D,); float32, bfloat16 or float16
+    each, any D >= 1.
     CUDA tensors launch the kernel (counted in ``rmsnorm.launches``); CPU
     tensors take the plain version.  Differentiable in x and scale, by
     the plain version's gradient."""
@@ -60,8 +63,8 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     x_dt = backend.kernel_dtype("rmsnorm", x)
     s_dt = backend.kernel_dtype("rmsnorm", scale)
     D = x.shape[-1] if x.dim() else 0
-    if x.dim() == 0 or scale.shape != (D,) or not 1 <= D <= MAX_D:
-        raise ValueError(f"rmsnorm: x (..., D) with 1 <= D <= {MAX_D} and "
+    if x.dim() == 0 or scale.shape != (D,) or not 1 <= D < 2 ** 31:
+        raise ValueError(f"rmsnorm: x (..., D) with 1 <= D < 2**31 and "
                          f"scale (D,), got {tuple(x.shape)} and "
                          f"{tuple(scale.shape)}")
     if not (x.is_contiguous() and scale.is_contiguous()):

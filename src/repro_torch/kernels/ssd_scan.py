@@ -12,8 +12,9 @@ The kernel (``csrc/ssd_scan.cu``: four launches, one call) says what
 bounds it and how its design answers that: C B^T once per (sequence,
 chunk, group), and every product on ``mma.sync`` in split TF32 (three
 TF32 products for each float32 one).  One route, ``"mma"``
-(``ssd_scan_route``), for every shape the kernel takes: a ragged P, N or
-chunk runs in zero-padded tiles.  ``ssd_scan`` launches it for CUDA
+(``ssd_scan_route``), for every shape the reference's kernel takes: any
+P (blocks of 64 columns), any N (slices of 128), any chunk dividing S; a
+ragged P, N or chunk runs in zero-padded tiles.  ``ssd_scan`` launches it for CUDA
 tensors and takes ``ref.ref_ssd_scan`` for CPU tensors; nothing falls
 back when a build or launch fails.  Its gradient is the plain version's
 (``backend.with_plain_grad``), through y only: the final state is
@@ -30,19 +31,20 @@ import torch
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_ssd_scan
 
-MAX_P = 64
-MAX_N = 128
-MAX_CHUNK = 1024
 TILE = 64                  # rows of a C B^T tile (csrc TILE)
 
 
 def _lib():
-    fn = build.load("ssd_scan").ssd_scan_launch
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 5 + [ll] * 12 + [i] * 9 + [p] * 7
+        fn.argtypes = [p] * 5 + [ll] * 12 + [i] * 9 + [p] * 8
         fn.restype = ctypes.c_int
-    return fn
+        big = lib.ssd_scan_big_floats
+        big.argtypes = [i] * 5
+        big.restype = ll
+    return lib
 
 
 def _check(x, dt, a, b, c, chunk):
@@ -71,18 +73,14 @@ def _codes(x, dt, a, b, c) -> Tuple[int, int]:
     dt_dt = backend.kernel_dtype("ssd_scan", dt)
     if a.dtype != torch.float32:
         raise TypeError(f"ssd_scan: a must be float32, got {a.dtype}")
-    P, N = x.shape[-1], b.shape[-1]
-    if not (P <= MAX_P and N <= MAX_N):
-        raise ValueError(f"ssd_scan: the kernel takes P <= {MAX_P} and N <= "
-                         f"{MAX_N}, got P={P}, N={N}")
     return x_dt, dt_dt
 
 
 def ssd_scan_route(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor) -> str:
     """The kernel a CUDA call on these inputs launches: ``"mma"`` (split
-    TF32 on ``mma.sync``) for x, b and c sharing float32 or bfloat16, dt
-    float32 or bfloat16, a float32, P <= 64 and N <= 128; raises for
+    TF32 on ``mma.sync``) for x, b and c sharing float32, bfloat16 or
+    float16, dt any of the three, a float32, at any P and N; raises for
     anything else.  Reads only dtype and shape, so it takes ``meta``
     tensors too."""
     _codes(x, dt, a, b, c)
@@ -112,11 +110,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, H, P); dt (B, S, H); a (H,); b/c (B, S, G, N).  Returns
     (y (B, S, H, P) in x's dtype, final state (B, H, P, N) float32).
-    x, b and c share float32 or bfloat16; dt is float32 or bfloat16; a is
-    float32.  ``S % chunk == 0``.  CUDA tensors launch the kernel (counted
-    in ``ssd_scan.launches``); CPU tensors take the plain version.  y is
-    differentiable in x, dt, a, b and c, by the plain version's gradient;
-    the state is not differentiable."""
+    x, b and c share float32, bfloat16 or float16; dt is any of the
+    three; a is float32.  ``S % chunk == 0``; any P and N.  CUDA tensors
+    launch the kernel (counted in ``ssd_scan.launches``); CPU tensors take
+    the plain version.  y is differentiable in x, dt, a, b and c, by the
+    plain version's gradient; the state is not differentiable."""
     _check(x, dt, a, b, c, chunk)
     return backend.with_plain_grad(_ssd_scan, ref_ssd_scan, (x, dt, a, b, c),
                                    {"chunk": chunk}, nondiff=(1,))
@@ -132,9 +130,6 @@ def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     x_dt, dt_dt = _codes(x, dt, a, b, c)
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"ssd_scan: the kernel takes chunk <= {MAX_CHUNK}, "
-                         f"got chunk={chunk}")
     if any(t.stride(-1) != 1 for t in (x, b, c)) or not a.is_contiguous():
         raise ValueError("ssd_scan: x, b and c need unit stride on their "
                          "last axis, a must be contiguous")
@@ -155,12 +150,19 @@ def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     nt = -(-chunk // TILE)
     cb = torch.empty((B, S // chunk, G, nt * (nt + 1) // 2, TILE, TILE),
                      dtype=torch.float32, device=dev)
-    backend.launch("ssd_scan", _lib(), x.data_ptr(), dt.data_ptr(),
-                   a.data_ptr(), b.data_ptr(), c.data_ptr(),
+    lib = _lib()
+    # the chunk kernel's chunk-long arrays, where shared memory cannot
+    # hold them (a chunk above 10,240)
+    n_big = lib.ssd_scan_big_floats(B, S, H, P, chunk)
+    big = torch.empty(n_big, dtype=torch.float32, device=dev) \
+        if n_big else None
+    backend.launch("ssd_scan", lib.ssd_scan_launch, x.data_ptr(),
+                   dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                    *x.stride()[:3], *dt.stride(), *b.stride()[:3],
                    *c.stride()[:3], B, S, H, G, P, N, chunk, x_dt, dt_dt,
                    y.data_ptr(), yf.data_ptr(), cs.data_ptr(), st.data_ptr(),
-                   cb.data_ptr(), state.data_ptr(), device=dev)
+                   cb.data_ptr(), state.data_ptr(),
+                   big.data_ptr() if big is not None else None, device=dev)
     ssd_scan.launches += 1
     backend.record_kernel("ssd_scan", lambda: cost(x, b, chunk))
     return y, state

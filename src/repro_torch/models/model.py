@@ -34,7 +34,8 @@ from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -223,6 +223,37 @@ def test_checkpoint_roundtrip():
                                             "leaf_00001.bin")) == 10
 
 
+def test_float16_params_roundtrip_both_ways():
+    """A float16 model's params (the reference builds float16 configs)
+    saved by either package load in the other bit for bit, under the
+    reference's dtype string ``float16``."""
+    from repro.models import init_params as ref_init_params
+    from repro_torch.models import init_params
+    f16 = dict(_CFG, param_dtype="float16", activ_dtype="float16")
+    port = init_params(LMConfig(**f16), torch.Generator().manual_seed(3))
+    ref = ref_init_params(RefLMConfig(**f16), jax.random.PRNGKey(3))
+    assert port["embed"].dtype == torch.float16
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save_checkpoint(d, 1, port)
+        m = json.loads(open(os.path.join(d, "step_0000000001",
+                                         "manifest.json")).read())
+        assert {x["dtype"] for x in m["leaves"]} == {"float16"}
+        back, _ = ckpt.load_checkpoint(d, port, device=CPU)
+        got, _ = ref_ckpt.load_checkpoint(d, ref)
+    for (pb, b), (pw, w) in zip(_leaves(back), _leaves(port), strict=True):
+        assert pb == pw and _same(b, w), pb
+    ref_leaves = jax.tree_util.tree_flatten_with_path(got)[0]
+    for (kp, g), (path, w) in zip(ref_leaves, _leaves(port), strict=True):
+        assert np.asarray(g).dtype == np.float16, path
+        assert _same(to_tensor(g, CPU), w), path
+    with tempfile.TemporaryDirectory() as d:
+        ref_ckpt.save_checkpoint(d, 2, ref)
+        got, _ = ckpt.load_checkpoint(d, port, device=CPU)
+    want = params_from_reference(ref, device=CPU)
+    for (pg, g), (pw, w) in zip(_leaves(got), _leaves(want), strict=True):
+        assert pg == pw and _same(g, w), pg
+
+
 def test_checkpoint_loads_into_like_dtype_and_meta_skeleton():
     tree = _tree()
     like = {"a": torch.empty((3, 4), dtype=torch.bfloat16, device="meta"),

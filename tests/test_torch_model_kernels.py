@@ -7,7 +7,11 @@ same inputs made from a seed with numpy and carried across with
 
 Tolerances are the reference's own (``tests/test_kernels.py``): flash
 attention 2e-5 (float32) / 2e-2 (bfloat16), decode attention 3e-5 /
-2e-2, grouped matmul 2e-3 / 3e-2, rmsnorm 1e-5 / 2e-2, rtol and atol."""
+2e-2, grouped matmul 2e-3 / 3e-2, rmsnorm 1e-5 / 2e-2, rtol and atol.
+float16, which the reference's tests do not run: 2e-3 (4e-3 for the
+grouped matmul), rtol and atol.  Both sides compute in float32 and round
+once to float16 (4.9e-4 relative), so the bound leaves room for the two
+frameworks' float32 sum orders and no more."""
 
 import numpy as np
 import pytest
@@ -28,9 +32,12 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul_route)
 
-F32, BF16 = jnp.float32, jnp.bfloat16
-TOL = {"flash": (2e-5, 2e-2), "decode": (3e-5, 2e-2), "gmm": (2e-3, 3e-2),
-       "rmsnorm": (1e-5, 2e-2)}
+F32, BF16, F16 = jnp.float32, jnp.bfloat16, jnp.float16
+TOL = {"flash": (2e-5, 2e-2, 2e-3), "decode": (3e-5, 2e-2, 2e-3),
+       "gmm": (2e-3, 3e-2, 4e-3), "rmsnorm": (1e-5, 2e-2, 2e-3)}
+# the head dims the attention kernels took no part of before float16 and
+# the whole domain: not a multiple of 8, and above 256
+NEW_HEAD_DIMS = [1, 4, 12, 100, 257, 320, 512]
 
 
 def _normal(seed, shape, dtype=F32):
@@ -41,7 +48,7 @@ def _normal(seed, shape, dtype=F32):
 
 
 def _close(got, want, kind, dtype):
-    tol = TOL[kind][0 if dtype == F32 else 1]
+    tol = TOL[kind][{F32: 0, BF16: 1, F16: 2}[dtype]]
     got = got.float().numpy() if isinstance(got, torch.Tensor) else got
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32),
@@ -96,6 +103,25 @@ def test_rmsnorm_leading_axes_mixed_scale_and_eps():
     _close(got, ref_ops.rmsnorm(x, s, 1e-5), "rmsnorm", BF16)
 
 
+@pytest.mark.parametrize("rows,d,dtype,sdtype", [
+    (7, 128, F16, F16), (64, 512, F16, F16), (4, 3072, F16, F32),
+    (5, 96, F32, F16),
+    # past the one-pass kernel's 16,384: the two-pass kernel on the card
+    (3, 20_000, F16, F16), (3, 20_000, F32, F32), (2, 20_000, BF16, BF16),
+    (2, 20_001, F16, F32),
+])
+def test_rmsnorm_float16_and_wide_rows(rows, d, dtype, sdtype):
+    """float16 activations or scales, and rows wider than 16,384, against
+    the reference's Pallas kernel in interpret mode: y in x's dtype."""
+    x, xt = _normal(rows * d, (rows, d), dtype)
+    s, st = _normal(2, (d,), sdtype)
+    got = ops.rmsnorm(xt, st)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    want = ref_ops.rmsnorm(x, s)
+    assert want.dtype == x.dtype
+    _close(got, want, "rmsnorm", dtype)
+
+
 # ---------------------------------------------------------------------------
 # B6: flash attention
 # ---------------------------------------------------------------------------
@@ -124,6 +150,21 @@ def test_flash_attention_matches_reference(S, H, d, window, causal, dtype):
     _close(got, ref_oracle.ref_flash_attention(q, k, v, causal=causal,
                                                window=window),
            "flash", dtype)
+
+
+@pytest.mark.parametrize("S,H,d,window,causal", [
+    (128, 2, 64, 0, True), (256, 2, 128, 100, True), (128, 2, 64, 0, False),
+    (128, 3, 32, 50, True),
+])
+def test_flash_attention_float16(S, H, d, window, causal):
+    """float16 q, k, v (the 16-bit tensor-core route on the card) against
+    the reference's Pallas kernel in interpret mode: out in float16."""
+    (q, qt), (k, kt), (v, vt) = (_normal(70 + i, (2, S, H, d), F16)
+                                 for i in range(3))
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == torch.float16 and got.shape == qt.shape
+    _close(got, ref_ops.flash_attention(q, k, v, causal=causal,
+                                        window=window), "flash", F16)
 
 
 def test_flash_attention_reads_strided_views():
@@ -198,6 +239,19 @@ def test_decode_attention_edge_lengths(length, as_tensor):
             rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("group", [1, 4])
+def test_decode_attention_float16(group):
+    """float16 q and caches against the reference's Pallas kernel in
+    interpret mode: out in float16."""
+    B, KV, K, d = 2, 2, 512, 128
+    (q, qt), (kc, kct), (vc, vct) = _decode_inputs(9, B, KV * group, KV, K,
+                                                   d, F16)
+    got = ops.decode_attention(qt, kct, vct, 400, 128)
+    assert got.dtype == torch.float16
+    _close(got, ref_ops.decode_attention(q, kc, vc, 400, 128,
+                                         interpret=True), "decode", F16)
+
+
 @pytest.mark.parametrize("length,window", [(1, 0), (5, 0), (16, 0), (13, 8)])
 @pytest.mark.parametrize("d,H,KV,K", [(16, 4, 2, 16), (16, 4, 4, 48),
                                       (8, 8, 2, 48), (8, 4, 2, 16)])
@@ -237,41 +291,108 @@ def test_decode_attention_large_groups(group, dtype, length, window):
 
 
 # ---------------------------------------------------------------------------
-# B5 and B6: the head-dim domain (every multiple of 8 from 8 to 256)
+# B5 and B6: the head-dim domain (any d >= 1, in the three dtypes)
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", list(range(8, 257, 8)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", list(range(8, 257, 8)) + NEW_HEAD_DIMS)
 def test_head_dim_domain_passes_the_checks(d, dtype):
     """B5's and B6's checks (only the card runs them) on meta tensors:
-    every multiple of 8 from 8 to 256 in both dtypes, B5 at a group of
-    12, each run at the smallest width its route is instantiated for."""
-    code = 1 if dtype == torch.bfloat16 else 0
+    every multiple of 8 from 8 to 256 and the head dims off that grid (1,
+    4, 12, 100, 257, 320, 512) in the three dtypes, B5 at a group of 12,
+    each run at the smallest width its route is instantiated for (the
+    widest, 256, in column blocks past it); the 16-bit types take the
+    tensor-core route exactly where d is a multiple of 8 up to 256 and the
+    rows are 16-byte aligned."""
+    code = backend.KERNEL_DTYPES[dtype]
     q = torch.empty((2, 12, d), dtype=dtype, device="meta")
     kc = torch.empty((2, 100, 1, d), dtype=dtype, device="meta")
     assert b5.check_inputs(q, kc, kc) == code
     qf = torch.empty((1, 64, 3, d), dtype=dtype, device="meta")
     assert b6.check_inputs(qf, qf, qf, window=16) == code
-    for mod, route in ((b5, b5.decode_attention_route(q)),
-                       (b6, b6.flash_attention_route(qf))):
+    tensor_cores = dtype != torch.float32 and d % 8 == 0 and d <= 256
+    for mod, route in ((b5, b5.decode_attention_route(q, kc, kc)),
+                       (b6, b6.flash_attention_route(qf, qf, qf))):
+        assert route == ("mma" if tensor_cores else "fma")
         width = backend.padded_head_dim(d, mod.WIDTHS[route], "check")
-        assert width >= d and width in mod.WIDTHS[route]
+        assert width >= min(d, mod.WIDTHS[route][-1])
+        assert width in mod.WIDTHS[route]
         assert all(w < d for w in mod.WIDTHS[route] if w < width)
 
 
-@pytest.mark.parametrize("d", [0, 4, 12, 100, 260, 264])
-def test_head_dim_domain_refuses_the_rest(d):
-    """A head dim outside the domain raises ValueError naming it, in both
-    dtypes, for both kernels."""
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.empty((2, 4, d), dtype=dtype, device="meta")
-        kc = torch.empty((2, 100, 2, d), dtype=dtype, device="meta")
-        with pytest.raises(ValueError, match="multiple of 8"):
-            b5.check_inputs(q, kc, kc)
-        qf = torch.empty((1, 64, 3, d), dtype=dtype, device="meta")
-        with pytest.raises(ValueError, match="multiple of 8"):
-            b6.check_inputs(qf, qf, qf)
+_REFUSED = {
+    # the reference refuses d 0 too: 1 / sqrt(0) raises ZeroDivisionError
+    "d0": (dict(d=0), ValueError, "d >= 1"),
+    "float64": (dict(dtype=torch.float64), TypeError, "float32, bfloat16"),
+    "int32": (dict(dtype=torch.int32), TypeError, "float32, bfloat16"),
+    "mixed": (dict(kv_dtype=torch.bfloat16), TypeError, "one dtype"),
+    "cache_d": (dict(kv_d=13), ValueError, "(do not fit|one shape)"),
+    "strided_d": (dict(step=2), ValueError, "unit-strided"),
+}
+
+
+@pytest.mark.parametrize("case", list(_REFUSED))
+def test_head_dim_domain_refuses_the_rest(case):
+    """What B5's and B6's checks refuse now that every d >= 1 and float16
+    are in the domain: d 0 (where the reference's kernels raise as well),
+    dtypes other than float32 / bfloat16 / float16, a dtype mixed between
+    q and K/V, K/V whose d differs from q's, and a head axis that is not
+    unit-strided."""
+    kw, error, match = _REFUSED[case]
+    d, dtype = kw.get("d", 12), kw.get("dtype", torch.float16)
+    kv_dtype, kv_d = kw.get("kv_dtype", dtype), kw.get("kv_d", d)
+    step = kw.get("step", 1)
+
+    def m(*shape, dt=dtype):
+        full = shape[:-1] + (shape[-1] * step,)
+        return torch.empty(full, dtype=dt, device="meta")[..., ::step]
+
+    q, kc = m(2, 4, d), m(2, 100, 2, kv_d, dt=kv_dtype)
+    with pytest.raises(error, match=match):
+        b5.check_inputs(q, kc, kc)
+    qf, kf = m(1, 64, 3, d), m(1, 64, 3, kv_d, dt=kv_dtype)
+    with pytest.raises(error, match=match):
+        b6.check_inputs(qf, kf, kf)
+    if case == "d0":
+        z = jnp.zeros((1, 128, 2, 0))
+        with pytest.raises(ZeroDivisionError):
+            ref_ops.flash_attention(z, z, z)
+        with pytest.raises(ZeroDivisionError):
+            ref_ops.decode_attention(jnp.zeros((1, 2, 0)),
+                                     jnp.zeros((1, 64, 1, 0)),
+                                     jnp.zeros((1, 64, 1, 0)), 3)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+def test_flash_attention_any_head_dim(d, dtype):
+    """The plain version a CPU tensor takes at head dims off the
+    multiple-of-8 grid and above 256, in the three dtypes, against the
+    reference's Pallas kernel in interpret mode (which makes each block
+    the full d), causal with a window."""
+    (q, qt), (k, kt), (v, vt) = (_normal(80 + d + i, (1, 128, 2, d), dtype)
+                                 for i in range(3))
+    got = ops.flash_attention(qt, kt, vt, causal=True, window=50)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    _close(got, ref_ops.flash_attention(q, k, v, causal=True, window=50),
+           "flash", dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
+@pytest.mark.parametrize("d", NEW_HEAD_DIMS)
+def test_decode_attention_any_head_dim(d, dtype):
+    """The same for decode attention, at a GQA group of 8 over one KV
+    head, a 128-slot cache at length 100, window 0 and 64."""
+    (q, qt), (kc, kct), (vc, vct) = _decode_inputs(90 + d, 2, 8, 1, 128, d,
+                                                   dtype)
+    for window in (0, 64):
+        got = ops.decode_attention(qt, kct, vct, 100, window)
+        assert got.dtype == qt.dtype and got.shape == (2, 8, d)
+        _close(got, ref_ops.decode_attention(q, kc, vc, 100, window,
+                                             block_k=64, interpret=True),
+               "decode", dtype)
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -345,10 +466,14 @@ def test_decode_split_count(B, KV, n_sub, K, resident, want):
     assert split_count(B, KV, n_sub, K, resident) == want
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
-                                         (torch.float32, "fma")])
-def test_decode_attention_route(dtype, route):
-    assert decode_attention_route(torch.zeros(1, 2, 64, dtype=dtype)) == route
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "mma"), (torch.float32, 64, "fma"),
+    (torch.float16, 64, "mma"), (torch.float16, 12, "fma"),
+    (torch.bfloat16, 320, "fma"), (torch.float32, 320, "fma")])
+def test_decode_attention_route(dtype, d, route):
+    """The 16-bit types on the tensor cores where TMA reads the rows (d a
+    multiple of 8 up to 256), the scalar route elsewhere."""
+    assert decode_attention_route(torch.zeros(1, 2, d, dtype=dtype)) == route
 
 
 @pytest.mark.parametrize("name", ["length", "window"])
@@ -404,6 +529,8 @@ def test_runtime_scalar_host_values(val):
     # 128-row tile, and dividing the reference's own blocks
     (4, 56, 192, 64, F32),
     (4, 56, 192, 64, BF16),
+    (2, 128, 256, 128, F16),
+    (4, 56, 192, 64, F16),
 ])
 def test_grouped_matmul_matches_reference(E, C, D, F, dtype):
     x, xt = _normal(0, (E, C, D), dtype)
@@ -414,7 +541,7 @@ def test_grouped_matmul_matches_reference(E, C, D, F, dtype):
     _close(got, ref_oracle.ref_grouped_matmul(x, w), "gmm", dtype)
 
 
-@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("dtype", [F32, BF16, F16])
 def test_grouped_matmul_ragged(dtype):
     """Shapes off every block size (the reference's Pallas kernel asserts
     divisibility; the oracle holds the port)."""
@@ -446,6 +573,10 @@ def _meta_view(shape, dtype, offset):
     (2, 64, 64, 64, torch.bfloat16, 1, 0, "mma_sync"),
     (2, 64, 64, 64, torch.bfloat16, 0, 1, "mma_sync"),
     (2, 64, 64, 64, torch.bfloat16, 8, 8, "wgmma"),
+    # float16 takes the same routes as bfloat16
+    (16, 640, 4096, 6400, torch.float16, 0, 0, "wgmma"),
+    (3, 50, 100, 70, torch.float16, 0, 0, "mma_sync"),
+    (2, 64, 64, 64, torch.float16, 1, 0, "mma_sync"),
     # float32 keeps the IEEE-FMA kernel whatever its shape
     (16, 640, 4096, 6400, torch.float32, 0, 0, "fma"),
     (3, 50, 100, 70, torch.float32, 0, 0, "fma"),
