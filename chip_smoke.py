@@ -315,6 +315,30 @@ and last, with the metrics registry on:
      chunk 12,288 with P 130 (the long chunks held to float64 alone,
      since the plain version's float32 cumsum drifts there), B4 at
      D 20,000 and 32,768.
+ 16. The README's ten example drivers as their users start them: each
+     ``repro_torch.examples`` driver at its reference's own sizes
+     (``harden_fleet`` and ``temporal_sweep`` with ``--trace
+     --metrics-out``, whose lines hold the plain runs'; plus
+     ``temporal_sweep --grid-size 65536`` and ``optimize_capacity
+     --smoke``; ``live_failover_drill`` as ``--smoke`` alone) as a
+     subprocess, ``python chip_smoke.py --example``, which runs the
+     module as ``python -m`` does with B1-B8's counts zeroed, every
+     model-kernel call recorded and the card's activity traced;
+     ``--device cpu`` in three batch children started at phase 14 at
+     the lowest priority, ``--device cuda`` in three batch children at
+     once; each exits 0, launches the kernels it reaches, makes only
+     model-kernel calls that phase 6 holds against the plain version
+     (its spawned ranks' counts and calls added), and prints its CPU
+     run's lines under ``repro_torch.examples.compare``'s rules (the
+     first Trainer loss within 1e-4, printed losses within 1e-4 and a
+     unit of their last place, quickstart's 80th 1e-2: the weights are
+     drawn on the host); the exports pass
+     ``repro_torch.obs.export --validate``; ``train_multihost``'s 8 and 2
+     ranks share the card over gloo where 13b's probe ran all_reduce,
+     all_gather and reduce_scatter on gloo worlds, else its CPU run
+     stands in and says so.  Each run's wall seconds (under the trace),
+     its child's start-up, device busy share and launches are printed
+     and the counts join the kernels line.
 
 Grades: booleans, int32 and int64 counts, min/max and first-crossing
 outputs exact; float verdicts float32-tight (rtol 1e-6); the availability
@@ -339,7 +363,8 @@ vs CPU within 1e-4 (float32, three steps).  Any failure exits
 non-zero.  The last two lines of
 standard output are a JSON object of the kernels' numbers and the JSON
 result line; without a CUDA device the script exits 2 and prints no
-result.  It takes no arguments: the fleets, the grid, the chunk and the
+result.  It takes no arguments (``--example`` is phase 16's own child):
+the fleets, the grid, the chunk and the
 number of warm runs are fixed, so every passing run is the full-size
 one.
 """
@@ -360,6 +385,7 @@ import io
 import itertools
 import json
 import pstats
+import re
 import subprocess
 import sys
 import time
@@ -2095,6 +2121,30 @@ def model_cases(torch, device):
                             ("open domain: D 32,768, bf16", 512, 32768,
                              bf16)):
         norm_case(label, R, D, dt)
+    # phase 16's calls, drawn after every earlier case (phase 16 checks
+    # each model-kernel call of the example drivers, their ranks' too,
+    # against these cases' signatures), all float32: serve_batched's
+    # reduced qwen3-1.7b (B5 at d 16, H 4 / KV 2 against its 64-slot
+    # cache, B4 over the hidden state at d_model 64 and the qk-norm rows
+    # of 2 and 4 heads at d_head 16) at every wave up to max_batch 8;
+    # quickstart's training step (B 16 x S 64, d 32, H 4; B4 at d_model
+    # 128); train_multihost's per-rank blocks on the (4, 2) and (2, 1)
+    # meshes (B 2 and 4 x S 32, d 16, H 8; B4 at d_model 128)
+    for B in range(1, 9):
+        decode_case(f"serve_batched, wave of {B}: d 16, K 64",
+                    (B, 4, 2, 16, 64), 33, 0, f32)
+    for B in range(5, 9):
+        norm_case(f"serve_batched hidden norm, wave of {B}", B, 64, f32)
+    for R in (10, 14, 20, 24, 28, 32):
+        norm_case(f"serve_batched: qk-norm, {R} rows of 16", R, 16, f32)
+    for args in (("quickstart train: d 32, H 4", 16, 64, 4, 32),
+                 ("train_multihost (4, 2) rank: d 16, H 8", 2, 32, 8, 16),
+                 ("train_multihost (2, 1) rank: d 16, H 8", 4, 32, 8, 16)):
+        flash_case(*args, True, 0, f32, 10)
+    for label, R in (("quickstart train norm", 1024),
+                     ("train_multihost (4, 2) rank norm", 64),
+                     ("train_multihost (2, 1) rank norm", 128)):
+        norm_case(label, R, 128, f32)
     return ops, cases
 
 
@@ -4499,7 +4549,8 @@ SPLITKV_RANKS = 4           # phase 13b: the (1, 4) split-KV mesh
 SPLITKV_PREFILL = 4096
 SPLITKV_STATE = os.path.join(ROOT, "build", "phase13b_state.pt")
 PROBE_WORLDS = ((2, "nccl"), (4, "nccl"), (2, "gloo"), (4, "gloo"))
-PROBE_OPS = ("all_reduce", "all_gather", "all_to_all", "send_recv")
+PROBE_OPS = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter",
+             "send_recv")
 PROBE_TIMEOUT_S = 240
 # phase 13c: one arch a family for the in-phase dry run (the full table
 # of ten archs x four shapes is launch/dryrun.py --all's)
@@ -4567,6 +4618,12 @@ def _probe_rank(rank: int, world: int, backend: str, store: str,
         dist.all_to_all_single(o, x)
         assert o.tolist() == [float(10 * r + rank) for r in range(world)]
 
+    def reduce_scatter():
+        x = torch.full((4 * world,), float(rank + 1), device=dev)
+        o = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(o, x)
+        assert float(o[0]) == world * (world + 1) / 2, float(o[0])
+
     def send_recv():
         x = torch.full((4,), float(rank), device=dev)
         if rank == 0:
@@ -4578,6 +4635,7 @@ def _probe_rank(rank: int, world: int, backend: str, store: str,
     attempt("all_reduce", all_reduce)
     attempt("all_gather", all_gather)
     attempt("all_to_all", all_to_all)
+    attempt("reduce_scatter", reduce_scatter)
     if splitkv and res["all_reduce"] == "ok":
         try:
             res["splitkv"] = _splitkv_rank(torch, dev, world, out, rank)
@@ -5700,6 +5758,439 @@ def phase_float16(torch, device, card: str, held: set) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the README's ten example drivers, started as a user starts them
+# ---------------------------------------------------------------------------
+
+# (label, driver, flags): each driver at its reference's own sizes, the
+# README's 64k sweep and the CI-sized run of optimize_capacity.
+# harden_fleet and temporal_sweep run with --trace --metrics-out only:
+# their lines are the plain run's plus where the files went.
+# live_failover_drill runs its drill alone (--smoke): the full run's
+# request campaign and replay took over 900 s on the card (the campaign
+# 298.7 s of it, 9 drills, on an NVIDIA H100 80GB HBM3, 700 W), beyond
+# this script's limit; phase 14d runs a campaign of the same oracle on
+# the card
+EXAMPLE_RUNS = (
+    ("train_multihost", "train_multihost", ()),
+    ("live_failover_drill --smoke", "live_failover_drill", ("--smoke",)),
+    ("optimize_capacity", "optimize_capacity", ()),
+    ("quickstart", "quickstart", ()),
+    ("optimize_capacity --smoke", "optimize_capacity", ("--smoke",)),
+    ("failover_drill", "failover_drill", ()),
+    ("harden_fleet --trace --metrics-out", "harden_fleet",
+     ("--trace", "t.json", "--metrics-out", "m.prom")),
+    ("temporal_sweep --grid-size 65536", "temporal_sweep",
+     ("--grid-size", "65536")),
+    ("temporal_sweep --trace --metrics-out", "temporal_sweep",
+     ("--trace", "t.json", "--metrics-out", "m.prom")),
+    ("chaos_campaign", "chaos_campaign", ()),
+    ("serve_batched", "serve_batched", ()),
+    ("capacity_planner", "capacity_planner", ()),
+)
+# the --device cpu runs, a child each batch (the runs of a batch one
+# after another), started at phase 14 at the lowest CPU priority, so
+# that they use the cores phases 14 and 15 leave idle and phase 16 only
+# collects them (run beside the card's children, seven processes and 16
+# ranks on the host's 8 cores, they made phase 16 take 201 s)
+CPU_BATCHES = (
+    ("train_multihost", "temporal_sweep --grid-size 65536",
+     "temporal_sweep --trace --metrics-out", "chaos_campaign"),
+    ("quickstart", "live_failover_drill --smoke", "failover_drill",
+     "serve_batched"),
+    ("optimize_capacity", "optimize_capacity --smoke",
+     "harden_fleet --trace --metrics-out", "capacity_planner"),
+)
+# the --device cuda runs, a child each batch, the three at once (the card
+# is idle over 95% of each run, the host's cores are the limit; a child's
+# start-up, imports and the CUDA context, is paid once a batch)
+CARD_BATCHES = (
+    ("train_multihost", "quickstart", "temporal_sweep --grid-size 65536",
+     "capacity_planner"),
+    ("live_failover_drill --smoke", "serve_batched", "chaos_campaign",
+     "temporal_sweep --trace --metrics-out"),
+    ("optimize_capacity", "optimize_capacity --smoke", "failover_drill",
+     "harden_fleet --trace --metrics-out"),
+)
+# the kernels each driver must launch on the card
+EXAMPLE_KERNELS = {
+    "harden_fleet": ("ingest_hist", "fixed_point_ell"),
+    "temporal_sweep": ("timeline_reduce", "fixed_point_ell"),
+    "chaos_campaign": ("timeline_reduce", "fixed_point_ell"),
+    "live_failover_drill": ("timeline_reduce", "rmsnorm",
+                            "decode_attention"),
+    "optimize_capacity": ("timeline_reduce", "fixed_point_ell"),
+    "capacity_planner": (),
+    "failover_drill": ("rmsnorm", "decode_attention", "flash_attention"),
+    "serve_batched": ("rmsnorm", "decode_attention"),
+    "quickstart": ("rmsnorm", "flash_attention"),
+    "train_multihost": ("rmsnorm", "flash_attention"),
+}
+# B1-B8's counters: (module, attribute)
+KERNEL_COUNTERS = (
+    ("timeline_reduce", "repro_torch.kernels.ufa.reduce"),
+    ("fixed_point_ell", "repro_torch.kernels.ufa.propagation"),
+    ("ingest_hist", "repro_torch.kernels.ufa.ingest"),
+    ("rmsnorm", "repro_torch.kernels.ops"),
+    ("decode_attention", "repro_torch.kernels.ops"),
+    ("flash_attention", "repro_torch.kernels.ops"),
+    ("grouped_matmul", "repro_torch.kernels.ops"),
+    ("ssd_scan", "repro_torch.kernels.ops"),
+)
+# the gloo collectives train_multihost's data-parallel step takes (13b)
+MULTIHOST_OPS = ("all_reduce", "all_gather", "reduce_scatter")
+EXAMPLE_TIMEOUT_S = 300     # a card child, from its start
+EXAMPLE_CPU_TIMEOUT_S = 600     # a CPU child, from its start at phase 14
+# losses card vs CPU (the same host-drawn weights): the first loss a
+# Trainer records (one forward pass; full precision) within
+# FIRST_LOSS_RTOL, the printed ones within LOSS_RTOL plus one unit of
+# their last printed place; quickstart's 80 float32 AdamW steps at lr
+# 8e-3 carry rounding further: its last loss read 5.2748 on an H100 and
+# 5.2666 on its host's CPU (seed 0; torch 2.11)
+FIRST_LOSS_RTOL = 1e-4
+LOSS_RTOL = 1e-4
+LOSS_RTOL_LONG = {"quickstart": 1e-2}
+RANK_COUNTS_ENV = "CHIP_SMOKE_RANK_COUNTS"
+_CHILDREN = []              # phase 16's children, stopped on the way out
+
+
+def _counters() -> dict:
+    return {name: getattr(importlib.import_module(mod), name)
+            for name, mod in KERNEL_COUNTERS}
+
+
+def _signature_from_json(x):
+    """A ``kernel_signature`` back from JSON (lists to tuples)."""
+    return tuple(_signature_from_json(v) for v in x) \
+        if isinstance(x, list) else x
+
+
+def _counted_rank_entry(target, rank, world, init_file, queue, args):
+    """``launch.mesh._rank_entry`` in a spawned rank of an example's
+    child, writing the rank's kernel launches and model-kernel call
+    signatures beside the child's."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    for fn in _counters().values():
+        fn.launches = 0
+    rec = CallRecorder(ops)
+    try:
+        with rec:
+            mesh._rank_entry(target, rank, world, init_file, queue, args)
+    finally:
+        with open(f"{os.environ[RANK_COUNTS_ENV]}.{os.getpid()}", "w") as fh:
+            json.dump({"launches": {k: fn.launches
+                                    for k, fn in _counters().items()},
+                       "signatures": sorted(rec.signatures, key=repr)}, fh)
+
+
+def example_child(argv) -> int:
+    """``python chip_smoke.py --example SPEC``: runs each entry of the
+    JSON list SPEC (``{"dir", "name", "flags"}``) in turn, in its
+    ``dir``, as ``python -m repro_torch.examples.<name> *flags`` runs it
+    (``runpy``, ``sys.argv`` the driver's), its output to ``dir/stdout``,
+    B1-B8's counts zeroed first, every call to a model kernel recorded
+    (``CallRecorder``, its spawned ranks' too), the losses a ``Trainer``
+    records kept and, on the card, the CUDA activity traced; writes
+    ``dir/result.json``: the driver's wall seconds (under the trace) and
+    start time, the counts and signatures (its ranks' added), the losses
+    and the device's busy seconds.  On the card, the CUDA context is made
+    before the first run, so no run's wall holds it."""
+    import contextlib
+    import runpy
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import chip_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh
+    from repro_torch.train import trainer
+    mesh._rank_entry = chip_smoke._counted_rank_entry
+    counters = _counters()
+    losses = []
+    run_trainer = trainer.Trainer.run
+
+    def recorded_run(self, *a, **k):
+        state, rep = run_trainer(self, *a, **k)
+        losses.extend(float(x) for x in rep.losses)
+        return state, rep
+
+    trainer.Trainer.run = recorded_run
+    spec = json.load(open(argv[0]))
+    if any("cuda" in run["flags"] for run in spec):
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        from torch._C._autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+    for run in spec:
+        d, name, flags = run["dir"], run["name"], run["flags"]
+        os.chdir(d)
+        out = os.path.join(d, "result.json")
+        os.environ[RANK_COUNTS_ENV] = out + ".rank"
+        for fn in counters.values():
+            fn.launches = 0
+        losses.clear()
+        prof = None
+        if "cuda" in flags:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        sys.argv = [name, *flags]
+        with open(os.path.join(d, "stdout"), "w") as so, \
+                contextlib.redirect_stdout(so), CallRecorder(ops) as rec:
+            started = time.time()
+            t0 = time.perf_counter()
+            runpy.run_module(f"repro_torch.examples.{name}",
+                             run_name="__main__", alter_sys=True)
+            if prof is not None:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = None
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            # the raw activity records (key_averages() builds an event
+            # tree and takes minutes on a run of 10^5 launches)
+            busy = sum(e.duration_ns()
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == DeviceType.CUDA) / 1e9
+        launches = {k: fn.launches for k, fn in counters.items()}
+        signatures = set(rec.signatures)
+        ranks = [f for f in os.listdir(d)
+                 if f.startswith("result.json.rank.")]
+        for f in ranks:
+            res = json.load(open(os.path.join(d, f)))
+            for k, v in res["launches"].items():
+                launches[k] += v
+            signatures |= {_signature_from_json(s)
+                           for s in res["signatures"]}
+        with open(out, "w") as fh:
+            json.dump({"wall_s": wall, "started": started,
+                       "launches": launches, "ranks": len(ranks),
+                       "signatures": sorted(signatures, key=repr),
+                       "losses": list(losses), "busy_s": busy}, fh)
+    return 0
+
+
+def _run_dir(base: str, tag: str, label: str, device: str) -> str:
+    return os.path.join(base, f"{tag}.{label.replace(' ', '_')}.{device}")
+
+
+def example_plan(probe: dict) -> tuple:
+    """What phase 16 runs, from 13b's ``probe``: ``where``, the device of
+    each run's card slot (train_multihost's is the CPU unless the probe
+    ran ``MULTIHOST_OPS`` on gloo worlds of 2 and 4 processes sharing the
+    card), and the children, ``(tag, device, labels)``: the CPU batches,
+    then the card batches.  A card slot on the CPU takes the CPU batch's
+    run (the same command) instead of a second one."""
+    gloo = all(probe.get(f"gloo{w}", {}).get(op) == "ran"
+               for w in (2, 4) for op in MULTIHOST_OPS)
+    where = {label: ("cuda" if name != "train_multihost" or gloo else "cpu")
+             for label, name, _ in EXAMPLE_RUNS}
+    children = [(f"cpu{i}", "cpu", batch)
+                for i, batch in enumerate(CPU_BATCHES)]
+    children += [(f"card{i}", "cuda",
+                  tuple(x for x in batch if where[x] == "cuda"))
+                 for i, batch in enumerate(CARD_BATCHES)]
+    return where, children
+
+
+def _start_examples(runs, device: str, base: str, tag: str,
+                    low_priority: bool = False) -> dict:
+    """Starts one child running ``runs`` (``(label, name, flags)``) in
+    turn on ``device``, each in a directory of its own (relative output
+    paths land there), in a session of its own (so that its spawned
+    ranks stop with it); ``low_priority``: at nice 19."""
+    spec = []
+    for label, name, flags in runs:
+        d = _run_dir(base, tag, label, device)
+        os.makedirs(d)
+        spec.append({"dir": d, "name": name,
+                     "flags": [*flags, "--device", device]})
+    path = os.path.join(base, f"{tag}.spec.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTHONWARNINGS="ignore::UserWarning:torch.profiler.profiler")
+    if device == "cpu":
+        env.update(OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
+    err_path = os.path.join(base, f"{tag}.stderr")
+    with open(err_path, "w") as se:
+        started = time.time()
+        p = subprocess.Popen([sys.executable, os.path.join(
+            ROOT, "chip_smoke.py"), "--example", path], cwd=base, env=env,
+            stdout=se, stderr=se, start_new_session=True)
+    if low_priority:
+        os.setpriority(os.PRIO_PROCESS, p.pid, 19)
+    _CHILDREN.append(p)
+    return {"proc": p, "runs": runs, "spec": spec, "err": err_path,
+            "started": started, "t0": time.perf_counter(), "tag": tag,
+            "device": device}
+
+
+def _finish_examples(child: dict, timeout_s: float) -> dict:
+    """Waits for a ``_start_examples`` child (``timeout_s`` from its
+    start); returns each run's result by label, with its output, its
+    directory and ``startup_s`` (the child's start to its first driver's:
+    imports and, on the card, the CUDA context)."""
+    p = child["proc"]
+    try:
+        rc = p.wait(timeout=max(1.0, child["t0"] + timeout_s
+                                - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        _stop(p)
+        rc = "killed at the time limit"
+    err = open(child["err"]).read()
+    check(rc == 0, f"phase 16 {[r[0] for r in child['runs']]} --device "
+                   f"{child['device']}: exit {rc}; {err[-1500:]}")
+    out = {}
+    for (label, _, _), s in zip(child["runs"], child["spec"]):
+        res = json.load(open(os.path.join(s["dir"], "result.json")))
+        res.update(stdout=open(os.path.join(s["dir"], "stdout")).read(),
+                   dir=s["dir"], child=child["tag"],
+                   signatures={_signature_from_json(x)
+                               for x in res["signatures"]})
+        out[label] = res
+    first = out[child["runs"][0][0]] if child["runs"] else None
+    for res in out.values():
+        res["startup_s"] = first["started"] - child["started"]
+    return out
+
+
+def _stop(p) -> None:
+    """Kills ``p``'s session (the child and the ranks it spawned)."""
+    import signal
+    if p.poll() is None:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    p.wait()
+
+
+def stop_children() -> None:
+    for p in _CHILDREN:
+        _stop(p)
+
+
+def start_example_cpu_runs(probe: dict) -> dict:
+    """Phase 16's ``--device cpu`` children (``CPU_BATCHES``), started
+    early at the lowest priority; ``phase_examples`` collects them."""
+    import shutil
+    base = os.path.join(ROOT, "build", "phase16")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    by_label = {r[0]: r for r in EXAMPLE_RUNS}
+    _, children = example_plan(probe)
+    return {tag: _start_examples([by_label[x] for x in labels], device, base,
+                                 tag, low_priority=True)
+            for tag, device, labels in children if device == "cpu"}
+
+
+def _loss_tokens(text: str) -> list:
+    """The printed losses, each with one unit of its last place."""
+    return [(float(x), 10.0 ** -len(x.split(".")[1]))
+            for x in re.findall(r"loss:? (\d+\.\d+)", text)]
+
+
+def phase_examples(torch, card: str, probe: dict, cpu_children: dict,
+                   held: set) -> dict:
+    """Phase 16: every ``EXAMPLE_RUNS`` driver as ``python -m
+    repro_torch.examples.<name> --device cuda``, in the ``CARD_BATCHES``
+    children (``example_child``) at once, against the ``--device cpu``
+    runs ``start_example_cpu_runs`` started; each run exits 0, launches
+    the kernels ``EXAMPLE_KERNELS`` names, makes only model-kernel calls
+    that phase 6 held against the plain version (``held``), and prints
+    the CPU run's lines under ``repro_torch.examples.compare``'s rules
+    (the losses, masked there, held here too: the weights are drawn on
+    the host).  train_multihost's card slot as ``example_plan`` says,
+    said so.  Returns each run's numbers by label."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.examples import compare
+    base = os.path.join(ROOT, "build", "phase16")
+    where, children = example_plan(probe)
+    log(f"phase 16: train_multihost on "
+        + ("the card: its 8 and 2 ranks share it over gloo (13b ran "
+           f"{', '.join(MULTIHOST_OPS)} on gloo worlds)"
+           if where["train_multihost"] == "cuda" else
+           "the CPU (--device cpu): 13b's probe did not run "
+           f"{', '.join(MULTIHOST_OPS)} on gloo worlds of processes sharing "
+           "the card; it waits for a machine with one card a rank"))
+    by_label = {r[0]: r for r in EXAMPLE_RUNS}
+    check(all(sorted(sum(b, ())) == sorted(by_label)
+              for b in (CPU_BATCHES, CARD_BATCHES)),
+          "phase 16: CPU_BATCHES and CARD_BATCHES must hold every run once")
+
+    t0 = time.perf_counter()
+    card_children = [_start_examples([by_label[x] for x in labels], device,
+                                     base, tag)
+                     for tag, device, labels in children if device == "cuda"]
+    with ThreadPoolExecutor(len(card_children) + len(cpu_children)) as pool:
+        cpu_f = [pool.submit(_finish_examples, c, EXAMPLE_CPU_TIMEOUT_S)
+                 for c in cpu_children.values()]
+        card_f = [pool.submit(_finish_examples, c, EXAMPLE_TIMEOUT_S)
+                  for c in card_children]
+        cpu = {k: v for f in cpu_f for k, v in f.result().items()}
+        out = {k: v for f in card_f for k, v in f.result().items()}
+    for label, name, flags in EXAMPLE_RUNS:
+        want = cpu[label]
+        got = out[label] if where[label] == "cuda" else dict(want)
+        out[label] = got
+        text = got["stdout"]
+        diffs = compare.differences(name, text, want["stdout"])
+        check(not diffs, f"phase 16 {label}: the card's lines differ from "
+                         f"the CPU run's: " + "; ".join(diffs[:5]))
+        gl, wl = _loss_tokens(text), _loss_tokens(want["stdout"])
+        rtol = LOSS_RTOL_LONG.get(name, LOSS_RTOL)
+        check(len(gl) == len(wl) and all(
+            abs(a - b) <= rtol * abs(b) + unit
+            for (a, unit), (b, _) in zip(gl, wl)),
+            f"phase 16 {label}: losses {gl} on the card, {wl} on the CPU")
+        check(len(got["losses"]) == len(want["losses"]),
+              f"phase 16 {label}: {len(got['losses'])} Trainer losses on "
+              f"the card, {len(want['losses'])} on the CPU")
+        if got["losses"]:
+            a, b = got["losses"][0], want["losses"][0]
+            check(abs(a - b) <= FIRST_LOSS_RTOL * abs(b),
+                  f"phase 16 {label}: first loss {a!r} on the card, {b!r} "
+                  f"on the CPU (rtol {FIRST_LOSS_RTOL})")
+        if where[label] == "cuda":
+            for k in EXAMPLE_KERNELS[name]:
+                check(got["launches"][k] > 0,
+                      f"phase 16 {label}: launched no {k}")
+            unheld = got["signatures"] - held
+            check(not unheld, f"phase 16 {label}: kernel calls that phase 6 "
+                  f"does not hold against the plain version: "
+                  f"{sorted(unheld)}")
+        busy = got["busy_s"]
+        got["busy_share"] = busy / got["wall_s"] if busy else None
+        got["cpu_wall_s"] = want["wall_s"]
+        got["device"] = where[label]
+        if "--metrics-out" in flags:
+            v = subprocess.run(
+                [sys.executable, "-m", "repro_torch.obs.export", "--validate",
+                 "m.prom", "--validate-trace", "t.json"], cwd=got["dir"],
+                env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+                capture_output=True, text=True, timeout=120)
+            check(v.returncode == 0 and "prometheus OK" in v.stdout,
+                  f"phase 16 {label}: exports invalid: {v.stdout} {v.stderr}")
+        log(f"phase 16 {label}: {where[label]} wall {got['wall_s']:.3f} s "
+            f"({got['child']}, start-up {got['startup_s']:.3f} s; device busy "
+            + (f"{busy:.3f} s, share {got['busy_share']:.4f}" if busy
+               else "not measured")
+            + f"), --device cpu wall {want['wall_s']:.3f} s, "
+            f"{len(text.splitlines())} lines == the CPU run's, first loss "
+            f"{got['losses'][0] if got['losses'] else None}, "
+            f"{len(got['signatures'])} model-kernel signatures held, "
+            f"launches {json.dumps(got['launches'])} [{card}]")
+        for line in got["stdout"].splitlines():
+            log(f"example {label} |", line)
+    log(f"phase 16: {time.perf_counter() - t0:.2f} s for "
+        f"{len(EXAMPLE_RUNS)} runs on each device (the CPU runs started at "
+        f"phase 14) [{card}]")
+    return {label: {k: r[k] for k in ("wall_s", "startup_s", "cpu_wall_s",
+                                       "busy_s", "busy_share", "launches",
+                                       "device")}
+            for label, r in out.items()}
+
+
 def main_grid(n: int) -> dict:
     from repro_torch.core.scenarios import scenario_grid
     from repro_torch.core.sweep_engine import tile_grid
@@ -6053,6 +6544,9 @@ def main() -> int:
         + json.dumps({"shares": meshed["shares"],
                       "probe": meshed["probe"]}) + f" [{card}]")
 
+    # phase 16's --device cpu runs start here, at the lowest priority
+    cpu_examples = start_example_cpu_runs(meshed["probe"])
+
     # phase 14: musicgen-large, internvl2-76b, command-r-plus-104b and
     # kimi-k2 at their published widths (card vs CPU, decode vs forward,
     # bf16 timed runs), the request campaign on the card; B4-B7 counted
@@ -6103,6 +6597,32 @@ def main() -> int:
              for label, row in timed16.items() if row["launches"][name]})
         by_name[name]["launches"] = timed16[newest]["launches"][name]
 
+    # phase 16: the README's ten example drivers as subprocesses, card
+    # against CPU, B1-B8 counted in each
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    examples = phase_examples(torch, card, meshed["probe"], cpu_examples,
+                              set().union(*(e["held"] for e in k_model)))
+    log(f"phase 16 ok: {time.perf_counter() - t0:.2f} s, " + json.dumps(
+        {label: {k: r[k] for k in ("device", "wall_s", "busy_share",
+                                   "launches")}
+         for label, r in examples.items()}) + f" [{card}]")
+    by_name.update({e["name"]: e for e in (k_reduce, k_prop, k_ingest)})
+    for name, entry in by_name.items():
+        paths = entry.setdefault("launches_by_path", {})
+        paths.update({f"example {label} (phase 16)": r["launches"][name]
+                      for label, r in examples.items()
+                      if r["launches"][name]})
+    for name, newest in (("timeline_reduce",
+                          "temporal_sweep --grid-size 65536"),
+                         ("fixed_point_ell",
+                          "harden_fleet --trace --metrics-out"),
+                         ("ingest_hist", "harden_fleet --trace --metrics-out"),
+                         ("rmsnorm", "serve_batched"),
+                         ("decode_attention", "serve_batched"),
+                         ("flash_attention", "quickstart")):
+        by_name[name]["launches"] = examples[newest]["launches"][name]
+
     kernels = [k_reduce, k_prop, k_ingest] + k_model
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6117,8 +6637,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--example"]:
+        # phase 16's child: one example driver (see example_child)
+        sys.exit(example_child(sys.argv[2:]))
     try:
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        stop_children()

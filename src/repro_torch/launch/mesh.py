@@ -26,10 +26,15 @@ from __future__ import annotations
 import datetime
 import itertools
 import math
+import os
+import queue as queue_mod
+import tempfile
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 # Per card, "NVIDIA H100 80GB HBM3, 700.00 W" as nvidia-smi reports it
 # (the SXM part's data sheet, dense rates); used by launch/roofline.py.
@@ -239,3 +244,62 @@ def make_world_mesh(shape: Sequence[int], axis_names: Sequence[str],
         dev = torch.device("cuda", torch.cuda.current_device())
     return Mesh(shape, axis_names, live=True, rank=dist.get_rank(),
                 device=dev)
+
+
+def _rank_entry(target, rank: int, world: int, init_file: str, queue,
+                args: tuple) -> None:
+    try:
+        queue.put((rank, target(rank, world, init_file, *args), None))
+    except BaseException as e:  # reported by the parent
+        queue.put((rank, None, f"{type(e).__name__}: {e}"))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(target, world: int, args: tuple = (),
+              timeout_s: float = 3600.0) -> Dict[int, object]:
+    """Spawns ``world`` processes, rank ``r`` calling ``target(r, world,
+    init_file, *args)`` (a module-level function; ``init_file`` is the
+    ``FileStore`` path for ``init_world``, in a temporary directory), and
+    returns each rank's result by rank.  Raises ``RuntimeError`` when a
+    rank fails or gives no result; a failing rank stops the others."""
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    results, errors = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_file = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(target=_rank_entry, args=(
+            target, r, world, init_file, queue, args)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        try:
+            while len(results) + len(errors) < world and not errors:
+                try:
+                    rank, res, err = queue.get(timeout=1.0)
+                except queue_mod.Empty:
+                    # a rank that ended without a result (killed, or
+                    # failed before its target ran) stops the run
+                    gone = [r for r, p in enumerate(procs)
+                            if not p.is_alive() and r not in results]
+                    if gone and queue.empty():
+                        errors.update({r: f"ended with exit code "
+                                       f"{procs[r].exitcode}" for r in gone})
+                    elif time.monotonic() > deadline:
+                        errors["timeout"] = f"no result in {timeout_s} s"
+                    continue
+                if err is None:
+                    results[rank] = res
+                else:
+                    errors[rank] = err
+        finally:
+            for p in procs:
+                p.join(timeout=5 if errors else 60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    if errors or len(results) < world:
+        raise RuntimeError(f"ranks failed: {errors or sorted(results)}")
+    return results

@@ -35,14 +35,12 @@ import os
 import tempfile
 
 import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch.configs import get_arch
 from repro_torch.dist.ctx import sharding_rules
 from repro_torch.dist.sharding import param_shardings
 from repro_torch.dist.smap import put
-from repro_torch.launch.mesh import init_world, make_local_mesh
+from repro_torch.launch.mesh import init_world, make_local_mesh, run_ranks
 from repro_torch.data import SyntheticLMDataset, make_train_iterator
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import init_params
@@ -117,18 +115,10 @@ def _run(args, rank: int = 0, init_file: str = ""):
     return rep
 
 
-def _rank_main(rank: int, args, init_file: str, queue):
+def _rank_main(rank: int, world: int, init_file: str, args):
     if args.device == "cpu":
         torch.set_num_threads(1)
-    try:
-        rep = _run(args, rank, init_file)
-        queue.put((rank, rep, None))
-    except BaseException as e:  # reported by the parent
-        queue.put((rank, None, f"{type(e).__name__}: {e}"))
-        raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    return _run(args, rank, init_file)
 
 
 def main(argv=None):
@@ -141,33 +131,7 @@ def main(argv=None):
     if d * m != args.devices:
         raise ValueError(f"--mesh {args.mesh} does not cover --devices "
                          f"{args.devices}")
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    with tempfile.TemporaryDirectory() as tmp:
-        init_file = os.path.join(tmp, "rendezvous")
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, args, init_file, queue))
-                 for r in range(args.devices)]
-        for p in procs:
-            p.start()
-        results = {}
-        try:
-            while len(results) < args.devices:
-                rank, rep, err = queue.get(timeout=3600)
-                results[rank] = (rep, err)
-                if err is not None:
-                    break
-        finally:
-            for p in procs:
-                p.join(timeout=60 if not any(
-                    e for _, e in results.values()) else 5)
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-    errors = {r: e for r, (_, e) in results.items() if e}
-    if errors or len(results) < args.devices:
-        raise RuntimeError(f"train ranks failed: {errors or results}")
-    return results[0][0]
+    return run_ranks(_rank_main, args.devices, (args,))[0]
 
 
 if __name__ == "__main__":

@@ -67,14 +67,21 @@ def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size=None):
     """Truncated-normal fan-in init (maxtext-style): N(0, 1) cut at +-2,
     times 1 / sqrt(fan_in), drawn in float32 and cast.  Scaled in place,
     so one float32 slab is alive before the cast (kimi-k2's (384, 7,168,
-    2,048) expert slab is 22.5 GB of float32)."""
+    2,048) expert slab is 22.5 GB of float32).
+
+    The draw is the inverse CDF of one uniform a value (as
+    ``jax.random.truncated_normal``), written out here rather than left
+    to ``torch.nn.init.trunc_normal_``, whose algorithm changed between
+    torch builds (2.13 redraws out-of-range normals instead): a seed
+    gives the same weights on every build."""
     if gen.device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=gen.device)
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     std = 1.0 / math.sqrt(max(1, fan_in))
+    lo, hi = (math.erf(c / math.sqrt(2.0)) for c in (-2.0, 2.0))
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t.mul_(std).to(dtype)
+    t.uniform_(lo, hi, generator=gen).erfinv_().mul_(math.sqrt(2.0))
+    return t.clamp_(-2.0, 2.0).mul_(std).to(dtype)
 
 
 def _embed_init(gen: torch.Generator, shape, dtype):

@@ -628,7 +628,9 @@ def hardening_weights(fs: FleetState, graph, knobs=None,
     services is 1.  Feed to ``plan_hardening(service_weights=...)``."""
     dev = resolve_device(device)
     base = DesignBase.from_fleet_state(fs).as_arrays(dev)
-    knobs = ufa_knobs(dev) if knobs is None else knobs
+    # knobs as tensors on dev, or as host arrays (``CapacityOptResult.knobs``)
+    knobs = ufa_knobs(dev) if knobs is None else {
+        k: torch.as_tensor(v, dtype=F32).to(dev) for k, v in knobs.items()}
     cols = _grid_cols(certification_grid() if grid is None else grid, dev)
     ts = torch.from_numpy(default_ts().astype(np.float32)).to(dev)
     tau_t = torch.tensor(tau, dtype=F32, device=dev)

@@ -291,3 +291,25 @@ def test_moe_apply_local_matches_reference(E, top_k, capacity, shared, start,
     got_y, got_aux = layers.moe_apply_local(pp, tx, **kw)
     _close(got_y, want_y)
     _close(got_aux, want_aux)
+
+
+def test_dense_init_draws_the_inverse_cdf_on_every_torch_build():
+    """``_dense_init`` is N(0, 1) cut at +-2 as the inverse normal CDF of
+    one uniform a value (``jax.random.truncated_normal``'s method), not
+    ``torch.nn.init.trunc_normal_``, which redraws out-of-range normals
+    in some torch builds and not in others; so a seed gives the same
+    weights on every build (the seed-0 slab's first values pinned)."""
+    from math import erf, sqrt
+
+    from scipy.special import erfinv
+    shape = (64, 32)
+    got = layers._dense_init(torch.Generator().manual_seed(0), shape,
+                             torch.float32)
+    u = torch.empty(shape).uniform_(
+        erf(-sqrt(2.0)), erf(sqrt(2.0)),
+        generator=torch.Generator().manual_seed(0)).double().numpy()
+    want = np.clip(erfinv(u) * sqrt(2.0), -2.0, 2.0) / sqrt(shape[0])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got.flatten()[:4].numpy(),
+                               [-0.0011196, 0.0866937, -0.1551934,
+                                -0.1302137], rtol=0, atol=1e-7)

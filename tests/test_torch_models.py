@@ -19,6 +19,7 @@ full width the configs are held in shapes only: ``init_abstract``,
 
 import dataclasses
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -521,9 +522,12 @@ def test_dense_and_embed_init_scale_in_place(dtype):
     shape, fan_in = (3, 40, 24), 40
     got = layers._dense_init(torch.Generator().manual_seed(5), shape, dtype,
                              in_axis_size=fan_in)
-    t = torch.empty(shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                generator=torch.Generator().manual_seed(5))
+    # the draw: N(0, 1) cut at +-2 by the inverse CDF of one uniform a
+    # value (tests/test_torch_layers.py holds it to scipy's erfinv)
+    t = torch.empty(shape, dtype=torch.float32).uniform_(
+        math.erf(-math.sqrt(2.0)), math.erf(math.sqrt(2.0)),
+        generator=torch.Generator().manual_seed(5))
+    t = t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
     assert got.dtype == dtype
     assert torch.equal(got, (t * (1.0 / np.sqrt(fan_in))).to(dtype))
     emb = layers._embed_init(torch.Generator().manual_seed(6), (50, 16),
