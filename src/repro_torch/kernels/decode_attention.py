@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_decode_attention
+from repro_torch.obs.trace import span
 
 # the widths each route's kernel is instantiated for (a call runs the
 # smallest one >= d; the bf16 ring's TMA boxes are 64 elements wide)
@@ -239,13 +240,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     part_ml = torch.empty(B * H * nsplit * 2, dtype=torch.float32,
                           device=q.device)
     out = torch.empty_like(q)
-    backend.launch("decode_attention", _lib().decode_attention_launch,
-                   q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                   *k_cache.stride()[:3], *v_cache.stride()[:3],
-                   B, H, KV, K, d, width, nsplit, len_dev, len_host,
-                   win_dev, win_host, 1.0 / math.sqrt(d),
-                   part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-                   dt, ROUTES[route_c], int(vec), device=q.device)
+    with span("kernel.b5"):
+        backend.launch("decode_attention", _lib().decode_attention_launch,
+                       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                       *k_cache.stride()[:3], *v_cache.stride()[:3],
+                       B, H, KV, K, d, width, nsplit, len_dev, len_host,
+                       win_dev, win_host, 1.0 / math.sqrt(d),
+                       part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+                       dt, ROUTES[route_c], int(vec), device=q.device)
     decode_attention.launches += 1
     backend.record_kernel("decode_attention", lambda: cost(q, k_cache, window))
     return out

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_flash_attention
+from repro_torch.obs.trace import span
 
 # the widths each route's kernel is instantiated for (a call runs the
 # smallest one >= d; the 16-bit kernel's k16 fragments and tiling need 32
@@ -139,10 +140,12 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
-    backend.launch("flash_attention", _lib(), q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), out.data_ptr(), strides, B, S, H, d, width,
-                   int(bool(causal)), window, 1.0 / math.sqrt(d), dt,
-                   ROUTES[route_c], int(vec), device=q.device)
+    with span("kernel.b6"):
+        backend.launch("flash_attention", _lib(), q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+                       B, S, H, d, width, int(bool(causal)), window,
+                       1.0 / math.sqrt(d), dt, ROUTES[route_c], int(vec),
+                       device=q.device)
     flash_attention.launches += 1
     backend.record_kernel("flash_attention", lambda: cost(q, causal, window))
     return out

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_grouped_matmul
+from repro_torch.obs.trace import span
 
 # route codes of the C entry point (csrc/grouped_matmul.cu)
 ROUTES = {"fma": 0, "mma_sync": 1, "wgmma": 2}
@@ -105,8 +106,9 @@ def _grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     route = ROUTES[grouped_matmul_route(x, w)]
-    backend.launch("grouped_matmul", _lib(), x.data_ptr(), w.data_ptr(),
-                   out.data_ptr(), E, C, D, F, route, dt, device=x.device)
+    with span("kernel.b7"):
+        backend.launch("grouped_matmul", _lib(), x.data_ptr(), w.data_ptr(),
+                       out.data_ptr(), E, C, D, F, route, dt, device=x.device)
     grouped_matmul.launches += 1
     backend.record_kernel("grouped_matmul", lambda: cost(x, w))
     return out

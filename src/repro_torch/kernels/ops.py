@@ -16,7 +16,8 @@ The port of ``repro/kernels/ops.py``:
 The reference transposes between the model's layout and its Pallas
 kernels' blocked layouts here; the CUDA kernels read the model's layouts
 through their strides, so these are the kernel wrappers themselves (each
-keeps its ``.launches`` count).  The reference's ``interpret`` and
+keeps its ``.launches`` count, and while tracing is on opens the span
+``kernel.b4`` ... ``kernel.b8`` around its launch).  The reference's ``interpret`` and
 ``block_*`` arguments were TPU tiling and interpreter knobs and are gone:
 each kernel sizes its own tiles.  Tensors on the card launch the kernels;
 tensors on the CPU take their plain PyTorch versions (``kernels.ref``).

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_rmsnorm
+from repro_torch.obs.trace import span
 
 # the widest row the one-pass kernel holds in registers (512 threads x
 # 32 values a thread); wider rows, to int32 range, take the two-pass one
@@ -77,9 +78,10 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if rows == 0:
         return y
     vec = int(all(t.data_ptr() % 16 == 0 for t in (x, scale, y)))
-    backend.launch("rmsnorm", _lib(), x.data_ptr(), scale.data_ptr(),
-                   y.data_ptr(), rows, D, float(eps), x_dt, s_dt, vec,
-                   device=x.device)
+    with span("kernel.b4"):
+        backend.launch("rmsnorm", _lib(), x.data_ptr(), scale.data_ptr(),
+                       y.data_ptr(), rows, D, float(eps), x_dt, s_dt, vec,
+                       device=x.device)
     rmsnorm.launches += 1
     backend.record_kernel("rmsnorm", lambda: cost(x, scale))
     return y

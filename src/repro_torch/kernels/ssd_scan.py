@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.kernels import backend, build
 from repro_torch.kernels.ref import ref_ssd_scan
+from repro_torch.obs.trace import span
 
 TILE = 64                  # rows of a C B^T tile (csrc TILE)
 
@@ -156,13 +157,15 @@ def _ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     n_big = lib.ssd_scan_big_floats(B, S, H, P, chunk)
     big = torch.empty(n_big, dtype=torch.float32, device=dev) \
         if n_big else None
-    backend.launch("ssd_scan", lib.ssd_scan_launch, x.data_ptr(),
-                   dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                   *x.stride()[:3], *dt.stride(), *b.stride()[:3],
-                   *c.stride()[:3], B, S, H, G, P, N, chunk, x_dt, dt_dt,
-                   y.data_ptr(), yf.data_ptr(), cs.data_ptr(), st.data_ptr(),
-                   cb.data_ptr(), state.data_ptr(),
-                   big.data_ptr() if big is not None else None, device=dev)
+    with span("kernel.b8"):
+        backend.launch("ssd_scan", lib.ssd_scan_launch, x.data_ptr(),
+                       dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                       *x.stride()[:3], *dt.stride(), *b.stride()[:3],
+                       *c.stride()[:3], B, S, H, G, P, N, chunk, x_dt, dt_dt,
+                       y.data_ptr(), yf.data_ptr(), cs.data_ptr(),
+                       st.data_ptr(), cb.data_ptr(), state.data_ptr(),
+                       big.data_ptr() if big is not None else None,
+                       device=dev)
     ssd_scan.launches += 1
     backend.record_kernel("ssd_scan", lambda: cost(x, b, chunk))
     return y, state

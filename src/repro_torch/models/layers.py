@@ -24,6 +24,13 @@ reference's sharding hints are gone (``dist.ctx.hint`` returns its
 input; ``seq_parallel`` moved only hints).  Under a mesh a layer sees
 the rank's blocks (``models.model`` gathers the weights); a decode step
 against caches sharded over "kv_seq" takes ``dist.splitkv``.
+
+While tracing is on (``obs.trace.tracing``) the layers open spans:
+``attn``; ``moe`` over its phases ``moe.route``, ``moe.positions``,
+``moe.dispatch``, ``moe.count`` (the MoE's counters, only then),
+``moe.experts`` and ``moe.combine``; ``ssm`` over ``ssm.in_proj``,
+``ssm.conv``, ``ssm.gates``, ``ssm.scan`` and ``ssm.out``.  The phases
+are functions called through this module's attributes.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from repro_torch.dist import ctx as dctx
 from repro_torch.dist.splitkv import splitkv_decode_attention
 from repro_torch.kernels import ops
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.obs.trace import add, span, tracing
 
 Params = Dict[str, Any]
 
@@ -247,68 +255,70 @@ def attention(params: Params, x: torch.Tensor, *, n_heads: int,
     blocked O(S*W) route, ``_blocked_local_attention``, the same
     function) has no counterpart here.  Returns (out, the caches given,
     now updated)."""
-    B, S, D = x.shape
-    cdt = x.dtype
-    q = (x @ params["wq"].to(cdt)).reshape(B, S, n_heads, d_head)
-    k = (x @ params["wk"].to(cdt)).reshape(B, S, n_kv_heads, d_head)
-    v = (x @ params["wv"].to(cdt)).reshape(B, S, n_kv_heads, d_head)
-    if qk_norm:
-        q = rmsnorm(params["q_norm"], q, eps)
-        k = rmsnorm(params["k_norm"], k, eps)
+    with span("attn"):
+        B, S, D = x.shape
+        cdt = x.dtype
+        q = (x @ params["wq"].to(cdt)).reshape(B, S, n_heads, d_head)
+        k = (x @ params["wk"].to(cdt)).reshape(B, S, n_kv_heads, d_head)
+        v = (x @ params["wv"].to(cdt)).reshape(B, S, n_kv_heads, d_head)
+        if qk_norm:
+            q = rmsnorm(params["q_norm"], q, eps)
+            k = rmsnorm(params["k_norm"], k, eps)
 
-    offsets = torch.arange(S, dtype=torch.int32, device=x.device)
-    positions = (offsets if kv_cache is None else cache_len + offsets)[None, :]
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+        offsets = torch.arange(S, dtype=torch.int32, device=x.device)
+        positions = (offsets if kv_cache is None
+                     else cache_len + offsets)[None, :]
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
 
-    if kv_cache is None:
-        group = n_heads // n_kv_heads
-        kr = torch.repeat_interleave(k, group, dim=2) if group > 1 else k
-        vr = torch.repeat_interleave(v, group, dim=2) if group > 1 else v
-        out = ops.flash_attention(q, kr, vr, causal=True, window=window)
-    else:
-        start = cache_len.reshape(())
-        mesh = dctx.current_mesh()
-        n_seq = dctx.axis_size("kv_seq")
-        if mesh is not None and n_seq > 1 and S == 1:
-            # split-KV (flash-decode): the caches are the rank's blocks of
-            # the caches sharded over "kv_seq" (decode_state_shardings), so
-            # the reference's max_seq % n_seq == 0 holds by construction;
-            # local write + partial softmax, pmax / psum log-sum-exp merge
-            # (dist.splitkv)
-            seq_axis = dctx.get_rule("kv_seq")
-            if len(kv_cache) == 4:
-                (kq, ks_new), (vq, vs_new) = quantize_kv(k), quantize_kv(v)
-                out, caches = splitkv_decode_attention(
-                    q, kq, vq, kv_cache[0], kv_cache[1], start, window,
-                    mesh=mesh, seq_axis=seq_axis,
-                    k_scale=kv_cache[2], v_scale=kv_cache[3],
-                    new_scales=(ks_new, vs_new))
-            else:
-                out, caches = splitkv_decode_attention(
-                    q, k, v, kv_cache[0], kv_cache[1], start, window,
-                    mesh=mesh, seq_axis=seq_axis)
-            out = out.reshape(B, S, n_heads * d_head)
-            return out @ params["wo"].to(cdt), caches
-        if len(kv_cache) == 4:
-            k_cache, v_cache, k_scale, v_scale = kv_cache
-            for cache, scales, new in ((k_cache, k_scale, k),
-                                       (v_cache, v_scale, v)):
-                values, sc = quantize_kv(new)
-                _write_cache(cache, start, values)
-                _write_cache(scales, start, sc)
-            k_all = (k_cache.float() * k_scale[..., None]).to(cdt)
-            v_all = (v_cache.float() * v_scale[..., None]).to(cdt)
+        if kv_cache is None:
+            group = n_heads // n_kv_heads
+            kr = torch.repeat_interleave(k, group, dim=2) if group > 1 else k
+            vr = torch.repeat_interleave(v, group, dim=2) if group > 1 else v
+            out = ops.flash_attention(q, kr, vr, causal=True, window=window)
         else:
-            k_cache, v_cache = kv_cache
-            _write_cache(k_cache, start, k)
-            _write_cache(v_cache, start, v)
-            k_all, v_all = k_cache.to(cdt), v_cache.to(cdt)
-        out = torch.stack([ops.decode_attention(
-            q[:, s].contiguous(), k_all, v_all, start + (s + 1), window)
-            for s in range(S)], dim=1)
-    out = out.reshape(B, S, n_heads * d_head)
-    return out @ params["wo"].to(cdt), kv_cache
+            start = cache_len.reshape(())
+            mesh = dctx.current_mesh()
+            n_seq = dctx.axis_size("kv_seq")
+            if mesh is not None and n_seq > 1 and S == 1:
+                # split-KV (flash-decode): the caches are the rank's blocks of
+                # the caches sharded over "kv_seq" (decode_state_shardings), so
+                # the reference's max_seq % n_seq == 0 holds by construction;
+                # local write + partial softmax, pmax / psum log-sum-exp merge
+                # (dist.splitkv)
+                seq_axis = dctx.get_rule("kv_seq")
+                if len(kv_cache) == 4:
+                    (kq, ks_new), (vq, vs_new) = quantize_kv(k), quantize_kv(v)
+                    out, caches = splitkv_decode_attention(
+                        q, kq, vq, kv_cache[0], kv_cache[1], start, window,
+                        mesh=mesh, seq_axis=seq_axis,
+                        k_scale=kv_cache[2], v_scale=kv_cache[3],
+                        new_scales=(ks_new, vs_new))
+                else:
+                    out, caches = splitkv_decode_attention(
+                        q, k, v, kv_cache[0], kv_cache[1], start, window,
+                        mesh=mesh, seq_axis=seq_axis)
+                out = out.reshape(B, S, n_heads * d_head)
+                return out @ params["wo"].to(cdt), caches
+            if len(kv_cache) == 4:
+                k_cache, v_cache, k_scale, v_scale = kv_cache
+                for cache, scales, new in ((k_cache, k_scale, k),
+                                           (v_cache, v_scale, v)):
+                    values, sc = quantize_kv(new)
+                    _write_cache(cache, start, values)
+                    _write_cache(scales, start, sc)
+                k_all = (k_cache.float() * k_scale[..., None]).to(cdt)
+                v_all = (v_cache.float() * v_scale[..., None]).to(cdt)
+            else:
+                k_cache, v_cache = kv_cache
+                _write_cache(k_cache, start, k)
+                _write_cache(v_cache, start, v)
+                k_all, v_all = k_cache.to(cdt), v_cache.to(cdt)
+            out = torch.stack([ops.decode_attention(
+                q[:, s].contiguous(), k_all, v_all, start + (s + 1), window)
+                for s in range(S)], dim=1)
+        out = out.reshape(B, S, n_heads * d_head)
+        return out @ params["wo"].to(cdt), kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -418,50 +428,88 @@ def moe_apply_local(params: Params, x: torch.Tensor, *, top_k: int,
     three expert products run on B7 (``ops.grouped_matmul``: a float32
     accumulator stored in x's dtype, as the reference's einsums with
     ``preferred_element_type=float32`` and a cast)."""
-    T, D = x.shape
-    cdt = x.dtype
     n_local = n_local_experts if n_local_experts is not None else n_experts
-    top_w, top_e, aux = moe_routing(params["router"], x, top_k)
+    with span("moe"):
+        with span("moe.route"):
+            top_w, top_e, aux = moe_routing(params["router"], x, top_k)
+        with span("moe.positions"):
+            if n_experts >= big_e_threshold:
+                pos = _expert_positions_big(top_e, n_experts)
+            else:
+                pos = _expert_positions(top_e, n_experts)
+        with span("moe.dispatch"):
+            slots, xe = _moe_dispatch(x, top_e, pos, capacity, expert_start,
+                                      n_local)
+        if tracing():
+            with span("moe.count"):
+                _moe_count(top_e, slots, capacity, n_experts, expert_start,
+                           n_local)
+        with span("moe.experts"):   # grouped: (E_l, C, D) x (E_l, D, F)
+            cdt = x.dtype
+            g = ops.grouped_matmul(xe, params["w_gate"].to(cdt))
+            u = ops.grouped_matmul(xe, params["w_up"].to(cdt))
+            ye = ops.grouped_matmul(F.silu(g) * u, params["w_down"].to(cdt))
+        with span("moe.combine"):
+            y = _moe_combine(params, x, ye, slots, top_w)
+        return y, aux
 
-    if n_experts >= big_e_threshold:
-        pos = _expert_positions_big(top_e, n_experts)
-    else:
-        pos = _expert_positions(top_e, n_experts)
 
-    # each slot's row in the per-expert queues; a dropped slot (another
-    # shard's expert, or past capacity) goes to the trash row
+def _moe_dispatch(x: torch.Tensor, top_e: torch.Tensor, pos: torch.Tensor,
+                  capacity: int, expert_start: int, n_local: int):
+    """Each (token, slot)'s row in the per-expert queues, as (ok, dst) a
+    slot, and the queues xe (n_local, capacity, D) filled with the
+    tokens.  A dropped slot (another shard's expert, or past capacity)
+    goes to the trash row past the queues."""
+    D = x.shape[1]
     trash = n_local * capacity
     slots = []
-    for s in range(top_k):
+    for s in range(top_e.shape[1]):
         e = top_e[:, s] - expert_start
         ok = (e >= 0) & (e < n_local) & (pos[:, s] < capacity)
         dst = torch.where(ok, e * capacity
                           + torch.clamp(pos[:, s], max=capacity - 1), trash)
         slots.append((ok, dst))
-
-    # Scatter tokens into per-expert queues: xe (n_local * capacity, D)
-    xe = torch.zeros((trash + 1, D), dtype=cdt, device=x.device)
+    xe = torch.zeros((trash + 1, D), dtype=x.dtype, device=x.device)
     for ok, dst in slots:
         xe.index_add_(0, dst, torch.where(ok[:, None], x, 0))
-    xe = xe[:trash].reshape(n_local, capacity, D)
+    return slots, xe[:trash].reshape(n_local, capacity, D)
 
-    # Expert GEMMs (grouped): (E_l, C, D) x (E_l, D, F)
-    g = ops.grouped_matmul(xe, params["w_gate"].to(cdt))
-    u = ops.grouped_matmul(xe, params["w_up"].to(cdt))
-    ye = ops.grouped_matmul(F.silu(g) * u, params["w_down"].to(cdt))
-    ye = torch.cat([ye.reshape(trash, D),
+
+def _moe_count(top_e: torch.Tensor, slots: list, capacity: int,
+               n_experts: int, expert_start: int, n_local: int) -> None:
+    """The MoE's counters, while tracing: the slots routed, those of a
+    local expert dropped at capacity, the rows handed to B7 and the rows
+    of them that hold a token (device sums, read when the counters
+    are)."""
+    T, k = top_e.shape
+    filled = torch.stack([ok for ok, _ in slots]).sum()
+    if expert_start == 0 and n_local == n_experts:
+        local = T * k
+    else:
+        local = ((top_e >= expert_start)
+                 & (top_e < expert_start + n_local)).sum()
+    add("moe.slots_routed", T * k)
+    add("moe.slots_dropped", local - filled)
+    add("moe.rows_computed", n_local * capacity)
+    add("moe.rows_filled", filled)
+
+
+def _moe_combine(params: Params, x: torch.Tensor, ye: torch.Tensor,
+                 slots: list, top_w: torch.Tensor) -> torch.Tensor:
+    """Each slot's expert output gathered back to its token and weighted,
+    slot by slot (a dropped slot reads the zero trash row), plus the
+    shared MLP where there is one."""
+    T, D = x.shape
+    cdt = x.dtype
+    ye = torch.cat([ye.reshape(-1, D),
                     torch.zeros((1, D), dtype=cdt, device=x.device)])
-
-    # Combine: gather each slot's expert output back to its token, slot
-    # by slot
     y = torch.zeros((T, D), dtype=cdt, device=x.device)
     for s, (ok, dst) in enumerate(slots):
         w = torch.where(ok, top_w[:, s], 0.0).to(cdt)
         y = y + ye[dst] * w[:, None]
-
     if "shared" in params:
         y = y + mlp(params["shared"], x)
-    return y, aux
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -641,30 +689,51 @@ def ssm_apply(params: Params, dims: SSMDims, x: torch.Tensor) -> torch.Tensor:
     B, S, D = x.shape
     d = dims
     cdt = x.dtype
-    zxbcdt = x @ params["in_proj"].to(cdt)                 # (B,S,*)
-    z, xin, bc, dt = _split(zxbcdt, d)
+    with span("ssm"):
+        with span("ssm.in_proj"):
+            zxbcdt = x @ params["in_proj"].to(cdt)         # (B,S,*)
+            z, xin, bc, dt = _split(zxbcdt, d)
+        with span("ssm.conv"):
+            conv_out = _ssm_conv(params, d, xin, bc)
+        with span("ssm.gates"):
+            xc32, dt_v, a, b32, c32 = _ssm_gates(params, d, conv_out, dt)
+        with span("ssm.scan"):
+            # the final state is dropped, as the reference's prefill
+            # drops it
+            y, _ = ops.ssd_scan(xc32, dt_v, a, b32, c32, chunk=d.chunk)
+        with span("ssm.out"):
+            y = y + params["d_skip"][None, None, :, None] * xc32
+            y = y.reshape(B, S, d.d_inner).to(cdt)
+            y = rmsnorm(params["norm"], y * F.silu(z))
+            return y @ params["out_proj"].to(cdt)
+
+
+def _ssm_conv(params: Params, d: SSMDims, xin: torch.Tensor,
+              bc: torch.Tensor) -> torch.Tensor:
+    """The depthwise causal conv over [x, B, C] (kernel d_conv, float32
+    taps summed in the reference's order), its bias and SiLU, back in
+    the input's dtype.  (B, S, conv_dim)."""
+    S = xin.shape[1]
     conv_in = torch.cat([xin, bc], dim=-1)                 # (B,S,conv_dim)
-    # depthwise causal conv, kernel d_conv, summed in the reference's order
     pad = F.pad(conv_in, (0, 0, d.d_conv - 1, 0))
     conv_w = params["conv_w"].float()
     conv_out = sum(pad[:, i:i + S, :].float() * conv_w[i]
                    for i in range(d.d_conv))
-    conv_out = F.silu(conv_out + params["conv_b"].float()).to(cdt)
+    return F.silu(conv_out + params["conv_b"].float()).to(xin.dtype)
 
+
+def _ssm_gates(params: Params, d: SSMDims, conv_out: torch.Tensor,
+               dt: torch.Tensor):
+    """B8's inputs: x, b and c split from the conv's output in float32
+    (ssd_chunked's own first step, so that y comes back in float32: B8
+    stores y in x's dtype), softplus(dt + dt_bias) and a = -exp(a_log).
+    Returns (x (B,S,H,P), dt (B,S,H), a (H,), b, c (B,S,G,N))."""
+    B, S, _ = conv_out.shape
+    gn = d.n_groups * d.d_state
     xc = conv_out[..., :d.d_inner].reshape(B, S, d.n_heads, d.head_dim)
     bcx = conv_out[..., d.d_inner:]
-    gn = d.n_groups * d.d_state
     b = bcx[..., :gn].reshape(B, S, d.n_groups, d.d_state)
     c = bcx[..., gn:].reshape(B, S, d.n_groups, d.d_state)
-    dt_v = F.softplus(dt.float() + params["dt_bias"])     # (B,S,H)
+    dt_v = F.softplus(dt.float() + params["dt_bias"])
     a = -torch.exp(params["a_log"])
-
-    # ssd_chunked's own first step: x, b and c in float32, so that y comes
-    # back in float32 (B8 stores y in x's dtype); the final state is
-    # dropped, as the reference's prefill drops it
-    xc32 = xc.float()
-    y, _ = ops.ssd_scan(xc32, dt_v, a, b.float(), c.float(), chunk=d.chunk)
-    y = y + params["d_skip"][None, None, :, None] * xc32
-    y = y.reshape(B, S, d.d_inner).to(cdt)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    return y @ params["out_proj"].to(cdt)
+    return xc.float(), dt_v, a, b.float(), c.float()

@@ -14,14 +14,18 @@ plain matrix products (selective checkpointing:
 (serving, decode) the layers run plainly.  Entry points
 that make tensors (``init_params``, ``init_decode_state``) take
 ``device=`` and run on the CUDA card unless the caller names the CPU;
-``init_abstract`` builds the tree on the ``meta`` device.
+``init_abstract`` builds the tree on the ``meta`` device.  While tracing
+is on (``obs.trace.tracing``) ``forward`` opens the span ``model.forward``
+(a call id its children carry) over ``model.embed``, one ``model.layer``
+a layer and ``model.final_norm``; ``logits_fn`` opens ``model.head``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import functools
+import itertools
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -31,6 +35,7 @@ from repro_torch.dist import ctx as dctx
 from repro_torch.dist import smap
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.obs.trace import span
 
 Params = Dict[str, Any]
 
@@ -584,6 +589,9 @@ def _embed(params: Params, cfg: LMConfig, inputs: torch.Tensor) -> torch.Tensor:
     return h
 
 
+_forward_calls = itertools.count()   # the call id of ``model.forward``
+
+
 def forward(params: Params, cfg: LMConfig, inputs: torch.Tensor,
             moe_parallel: Optional[MoEParallel] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -594,27 +602,33 @@ def forward(params: Params, cfg: LMConfig, inputs: torch.Tensor,
     (B, S, d_model) precomputed embeddings (frontend stub).  The tensors
     run where the params lie.
     """
-    h = _embed(params, cfg, inputs)
-    capacity = moe_capacity(cfg, h.shape[0] * h.shape[1])
-    windows = cfg.layer_windows().tolist()
-    thetas = cfg.layer_thetas().tolist()
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    remat = cfg.remat != "none" and torch.is_grad_enabled()
-    layers = _unstack(params["layers"], cfg.n_layers)
-    for i in range(cfg.n_layers):
-        args = (layers[i], h, cfg, windows[i], thetas[i], moe_parallel,
-                capacity)
-        h, aux_l = (_remat(cfg.remat, _layer_forward, *args) if remat
-                    else _layer_forward(*args))
-        if aux_l is not None:
-            aux = aux + aux_l
-    h = L.rmsnorm(top_leaf(params, cfg, "final_norm"), h, cfg.norm_eps)
-    return h, aux / cfg.n_layers
+    with span("model.forward", call=next(_forward_calls)):
+        with span("model.embed"):
+            h = _embed(params, cfg, inputs)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        capacity = moe_capacity(cfg, h.shape[0] * h.shape[1])
+        windows = cfg.layer_windows().tolist()
+        thetas = cfg.layer_thetas().tolist()
+        remat = cfg.remat != "none" and torch.is_grad_enabled()
+        layers = _unstack(params["layers"], cfg.n_layers)
+        for i in range(cfg.n_layers):
+            args = (layers[i], h, cfg, windows[i], thetas[i], moe_parallel,
+                    capacity)
+            with span("model.layer", layer=i):
+                h, aux_l = (_remat(cfg.remat, _layer_forward, *args) if remat
+                            else _layer_forward(*args))
+                if aux_l is not None:
+                    aux = aux + aux_l
+        with span("model.final_norm"):
+            h = L.rmsnorm(top_leaf(params, cfg, "final_norm"), h,
+                          cfg.norm_eps)
+        return h, aux / cfg.n_layers
 
 
 def logits_fn(params: Params, cfg: LMConfig,
               hidden: torch.Tensor) -> torch.Tensor:
-    return hidden @ head_weight(params, cfg).to(hidden.dtype)
+    with span("model.head"):
+        return hidden @ head_weight(params, cfg).to(hidden.dtype)
 
 
 # ---------------------------------------------------------------------------

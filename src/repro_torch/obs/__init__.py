@@ -16,6 +16,10 @@ bool when the plane is off::
     ...
     if obs.enabled():                       # one branch per call
         obs.inc("ufa_ingest_records_total", n, backend="numpy")
+
+The model path has its own gate, ``tracing()`` (a ``Tracer`` attached or
+a torch profiler recording): its spans (``span``) and counters
+(``add``, read by ``counters()``) cost one check each when it is off.
 """
 
 from __future__ import annotations
@@ -24,12 +28,15 @@ from typing import Dict, Optional, Tuple
 
 from .registry import (Counter, Gauge, Histogram, Metric, Registry,
                        default_registry, disable, enable, enabled)
-from .trace import Tracer, get_tracer, set_tracer, validate_chrome_trace
+from .trace import (SPAN_PREFIX, Tracer, add, counters, get_tracer,
+                    reset_counters, set_tracer, span, tracing,
+                    validate_chrome_trace)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Metric", "Registry", "Tracer",
     "default_registry", "enable", "disable", "enabled",
     "get_tracer", "set_tracer", "validate_chrome_trace",
+    "SPAN_PREFIX", "tracing", "span", "add", "counters", "reset_counters",
     "CATALOG", "inc", "set_gauge", "observe", "value", "describe",
 ]
 
@@ -69,12 +76,6 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...],
     "ufa_sweep_padding_waste_ratio": (
         "gauge", "fraction of the padded mega-batch that was padding "
         "in the most recent run", (), None),
-    "ufa_sweep_compiled_variants": (
-        "gauge", "programs resident in the sweep engine jit cache",
-        (), None),
-    "ufa_sweep_compile_misses_total": (
-        "counter", "jit cache misses (new compiled variants) observed "
-        "across SweepEngine.run calls", (), None),
     # -- temporal kernel (core/timeline_sim.py) -------------------------
     "ufa_timeline_scenarios_total": (
         "counter", "scenarios evaluated by sweep_timeline", (), None),
@@ -141,13 +142,10 @@ CATALOG: Dict[str, Tuple[str, str, Tuple[str, ...],
     "ufa_serving_queue_depth": (
         "gauge", "scheduler queue depth at the latest drill step",
         ("tier",), None),
-    # -- profiler / bench -----------------------------------------------
+    # -- profiler -------------------------------------------------------
     "ufa_phase_seconds": (
         "histogram", "wall time of named pipeline phases", ("phase",),
         None),
-    "ufa_bench_us_per_call": (
-        "gauge", "benchmark harness rows (microseconds per call)",
-        ("name",), None),
 }
 
 

@@ -9,22 +9,19 @@ device-aware pieces:
     a tensor of ``tree`` (a tensor, or a dict / list / tuple of them)
     before stopping the clock, so asynchronously queued device work is
     charged to the phase that launched it instead of whoever touches
-    the result first; CPU tensors and other leaves need no wait;
-  * ``jit_cache_watch`` diffs a jit-cache size callable (e.g.
-    ``sweep_engine.compiled_variants``) around a block, turning
-    recompiles into a counter delta + gauge;
-  * ``throughput`` / ``padding_waste`` are the shared recording shims
-    the engine call sites use, so gauge/counter naming stays in one
-    place.
+    the result first; CPU tensors and other leaves need no wait.
 
-``torch`` is imported lazily (only when ``sync`` is actually used).
+The reference's ``jit_cache_watch`` and its ``throughput`` /
+``padding_waste`` shims are not ported: the port compiles no program
+per shape, and its engines set their gauges themselves.  ``torch`` is
+imported lazily (only when ``sync`` is actually used).
 """
 
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Dict
 
 from repro_torch import obs
 
@@ -75,37 +72,3 @@ class Profiler:
             dt = time.perf_counter() - t0
             self.phases[name] = dt
             obs.observe("ufa_phase_seconds", dt, phase=name)
-
-    @contextmanager
-    def jit_cache_watch(self, cache_size: Callable[[], int],
-                        gauge: str = "ufa_sweep_compiled_variants",
-                        misses: str = "ufa_sweep_compile_misses_total"):
-        """Diff a jit-cache size around a block: new entries are compile
-        misses (counter), the post size a gauge."""
-        before = cache_size()
-        try:
-            yield
-        finally:
-            after = cache_size()
-            obs.set_gauge(gauge, after)
-            if after > before:
-                obs.inc(misses, after - before)
-
-
-# ---------------------------------------------------------------------------
-# recording shims shared by the engine call sites
-# ---------------------------------------------------------------------------
-
-def throughput(kind: str, n: int, seconds: float, **labels):
-    """Record one {ingest,sweep,timeline} call's throughput: the
-    ``*_total`` counter and the ``*_per_s`` gauge for ``kind``."""
-    obs.inc(f"ufa_{kind}_total", n, **labels)
-    if seconds > 0:
-        obs.set_gauge(f"ufa_{kind}_per_s", n / seconds)
-
-
-def padding_waste(n: int, padded: int,
-                  gauge: str = "ufa_sweep_padding_waste_ratio"):
-    """Record the padding-waste fraction of a bucket-padded mega-batch."""
-    if padded > 0:
-        obs.set_gauge(gauge, (padded - n) / padded)

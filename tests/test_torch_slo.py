@@ -244,20 +244,17 @@ def test_profiler_phases_sync_and_shims(port_obs, monkeypatch):
     fake = torch.zeros(2).as_subclass(FakeCuda)
     port_prof._synchronize({"x": [fake, fake], "y": torch.zeros(1)})
     assert calls == [torch.device("cuda", 0)]
-    sizes = iter([2, 5])
-    with prof.jit_cache_watch(lambda: next(sizes)):
-        pass
-    assert obs.value("ufa_sweep_compiled_variants") == 5
-    assert obs.value("ufa_sweep_compile_misses_total") == 3
-    port_prof.throughput("timeline_scenarios", 100, 0.5)
-    assert obs.value("ufa_timeline_scenarios_total") == 100
-    assert obs.value("ufa_timeline_scenarios_per_s") == 200.0
-    port_prof.padding_waste(3, 4)
-    assert obs.value("ufa_sweep_padding_waste_ratio") == 0.25
+    # deliberately not ported: jit_cache_watch (no jit cache) and the
+    # throughput / padding_waste shims (the engines set their gauges),
+    # and the typing names the port does not use; the port's own helpers
     assert [n for n in dir(ref_prof) if not n.startswith("__")
-            and n != "jax"] == \
+            and n not in ("jax", "throughput", "padding_waste",
+                          "Callable", "Optional")] == \
         [n for n in dir(port_prof) if not n.startswith("__")
          and n not in ("_leaves", "_synchronize")]
+    assert [n for n in dir(ref_prof.Profiler) if not n.startswith("__")
+            and n != "jit_cache_watch"] == \
+        [n for n in dir(port_prof.Profiler) if not n.startswith("__")]
 
 
 def test_trace_sweep_meters(port_obs):
